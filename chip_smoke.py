@@ -15,7 +15,17 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    2 epochs on synthetic data, then tests; launch counts prove the path
    went through the kernels;
 6. one sup and one unsup step on the card and on the CPU from the same
-   state and noise must agree.
+   state and noise must agree;
+7. the augment kernel (crop + flip + scale) against its plain version on
+   the card and on the CPU, bit for bit: drawn, extreme and flip cases at
+   the main path's shape, 128 px, one channel, an odd batch at an
+   unaligned base, and the stacked form against per-step launches;
+8. augment timing at (256, 72, 72, 3) -> 64 and stacked (4, 256, ...),
+   beside its byte bound and the plain version;
+9. the augmented path: the Trainer trains the same model with
+   augment_pad 4 and steps_per_dispatch 4 for 2 epochs, then tests;
+   4 augment launches of 1,024 images and 6 dequant launches (eval only);
+10. one augmented sup and one augmented unsup step, card vs CPU.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Run artifacts go to build/chip_smoke/.
@@ -54,7 +64,9 @@ def cuda_ms(fn, reps, warmup=10):
     the stream, so the host enqueues all `reps` calls before the first
     runs: the events then see the calls back to back, without the host's
     launch overhead between them. The host time is the wall time per call
-    of the enqueue loop (what a caller that waits on nothing pays)."""
+    of the enqueue loop (what a caller that waits on nothing pays). The
+    queue holds about 1,000 launches, so reps x (kernels per call) stays
+    below that, or the host waits for the sleep."""
     import torch
     for _ in range(warmup):
         fn()
@@ -72,6 +84,108 @@ def cuda_ms(fn, reps, warmup=10):
     check(host_ms < ev[0].elapsed_time(ev[1]),
           'the sleep kernel ended before the host enqueued every call')
     return ev[1].elapsed_time(ev[2]) / reps, host_ms / reps
+
+
+def card_vs_cpu(n, label, model_cfg, train_cfg, mu, batches, dev,
+                check_launches, draws=None):
+    """One sup and one unsup step on the card and on the CPU must agree.
+
+    Each step starts from the same state on both devices (the CPU's state
+    before it, loaded on the card) and takes the same noise, drawn once on
+    the CPU. With `draws`, the padded batches are first augmented with
+    those (dy, dx, fl).
+
+    Held to: metrics rel 1e-4; Adam m and v (the gradients), per leaf, max
+    abs within 1e-2 of the leaf's largest value; and the card's params
+    within lr/4 of the Keras Adam step of the card's own moments from the
+    shared state. The card's params are not held to the CPU's: card and
+    CPU reduce their f32 sums in different orders, and from zero moments
+    Adam moves a parameter by lr·g/(|g| + 3e-6), close to lr·sign(g), so a
+    gradient within rounding of zero moves it by up to lr either way on
+    either device. Their largest gap is printed with the moments at that
+    element. Returns the worst value of each measure."""
+    import torch
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.state import (create_train_state, init_model,
+                                          keras_alpha)
+    from gltvae_torch.train.steps import draw_noise, make_train_steps
+    lr, eps = train_cfg.lr, train_cfg.adam_eps
+    runs = []
+    for device in (dev, torch.device('cpu')):
+        model = init_model(model_cfg, train_cfg, mu, device)
+        runs.append((device, create_train_state(model, train_cfg),
+                     make_train_steps(model, train_cfg)))
+    g = torch.Generator().manual_seed(1)
+    noise = [draw_noise(runs[1][1].model, BATCH, sup, 100, g)
+             for sup in (True, False)]
+    worst = {k: (0.0, '') for k in ('metrics', 'adam_m', 'adam_v',
+                                    'adam_step', 'params')}
+
+    def note(key, val, where):
+        if val > worst[key][0]:
+            worst[key] = (val, where)
+
+    for i, ((x, y), nz) in enumerate(zip(batches, noise)):
+        before = runs[1][1].state_dict()
+        p0 = {k: v.clone() for k, v in before['params'].items()}
+        runs[0][1].load_state_dict(before)
+        out = []
+        for device, state, steps in runs:
+            xd = torch.from_numpy(x).to(device)
+            if draws is not None:
+                xd = preprocess.fused_augment_given(
+                    xd, *(d[i].to(device) for d in draws),
+                    model_cfg.image_size)
+            _, m = steps[i](state, xd, torch.from_numpy(y).to(device), 1.0,
+                            noise={k: v.to(device) for k, v in nz.items()})
+            out.append(({k: float(v) for k, v in m.items()},
+                        state.state_dict()))
+        (card_met, card), (cpu_met, cpu) = out
+        step = ('sup', 'unsup')[i]
+        for k in cpu_met:
+            note('metrics', abs(card_met[k] - cpu_met[k])
+                 / max(abs(cpu_met[k]), 1e-6), f'{step} {k}')
+        for key in ('adam_m', 'adam_v'):
+            for k, ref in cpu[key].items():
+                note(key, float((card[key][k] - ref).abs().max())
+                     / max(float(ref.abs().max()), 1e-30), f'{step} {k}')
+        alpha = keras_alpha(card['adam_count'], lr)
+        for k, p in p0.items():
+            want, info = p, ''
+            if k in card['adam_m']:           # a frozen μ has no moments
+                want = p - alpha * card['adam_m'][k] / (
+                    card['adam_v'][k].sqrt() + eps)
+            note('adam_step', float((card['params'][k] - want).abs().max()),
+                 f'{step} {k}')
+            gap = (card['params'][k] - cpu['params'][k]).abs().flatten()
+            j = int(gap.argmax())
+            if k in card['adam_m']:
+                mc, mp = (float(s['adam_m'][k].flatten()[j])
+                          for s in (card, cpu))
+                vc, vp = (float(s['adam_v'][k].flatten()[j]) ** 0.5
+                          for s in (card, cpu))
+                info = (f', m {mc:.2e} on the card, {mp:.2e} on the CPU, '
+                        f'√v {vc:.2e} and {vp:.2e}')
+            note('params', float(gap[j]), f'{step} {k}{info}')
+    check_launches()
+    phase(n, f'card vs CPU, {label} at B={BATCH}, each step from the same '
+             f'state and noise: metrics max rel {worst["metrics"][0]:.3e} '
+             f'(tol 1e-4); Adam max abs / leaf max m '
+             f'{worst["adam_m"][0]:.3e}, v {worst["adam_v"][0]:.3e} (tol '
+             f'1e-2); card params vs the Adam step of its moments max abs '
+             f'{worst["adam_step"][0]:.3e} (tol {0.25 * lr:.1e} = lr/4)')
+    print(f'  card vs CPU params max abs {worst["params"][0]:.3e} at '
+          f'{worst["params"][1]}', flush=True)
+    print('  worst at: ' + '; '.join(f'{k} {w}' for k, (_, w)
+                                     in worst.items() if k != 'params'),
+          flush=True)
+    check(worst['metrics'][0] <= 1e-4, f'{label}: card and CPU metrics '
+          'disagree')
+    check(max(worst['adam_m'][0], worst['adam_v'][0]) <= 1e-2,
+          f'{label}: card and CPU Adam moments disagree')
+    check(worst['adam_step'][0] <= 0.25 * lr, f'{label}: card params are '
+          'not the Adam step of its moments')
+    return {k: v for k, (v, _) in worst.items()}
 
 
 def main():
@@ -92,8 +206,6 @@ def main():
     from gltvae_torch.ops import _build, preprocess
     from gltvae_torch.ops.gating import cooccurrence_gating_matrix
     from gltvae_torch.train.loop import Trainer
-    from gltvae_torch.train.state import create_train_state, init_model
-    from gltvae_torch.train.steps import draw_noise, make_train_steps
 
     # ------------------------------------------------------------- 1
     smi = subprocess.run(
@@ -153,16 +265,19 @@ def main():
              f'and from the multiply form on {lib_vs_mul}')
 
     # ------------------------------------------------------------- 4
+    def cycler(items):
+        state = {'i': 0}
+
+        def nxt():
+            state['i'] = (state['i'] + 1) % len(items)
+            return items[state['i']]
+        return nxt
+
     # 16 distinct inputs (50 MB) cycled so that the 50 MB L2 holds no
     # input between launches, as in a train step that gets a fresh batch
     ins = [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
                          generator=gen) for _ in range(16)]
-    it = {'i': 0}
-
-    def nxt():
-        it['i'] = (it['i'] + 1) % len(ins)
-        return ins[it['i']]
-
+    nxt = cycler(ins)
     launches0 = preprocess.launches
     kernel_ms, kernel_call_ms = cuda_ms(lambda: preprocess.dequant(nxt()),
                                         100)
@@ -201,26 +316,32 @@ def main():
     temp0 = trainer.gating_temp
     step_s = []
 
-    def timed(step):
+    def synced(fn, times, shapes=None):
+        """fn, timed between device synchronizations into `times` (and
+        the shape of its result into `shapes`)."""
         def run(*a, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = step(*a, **kw)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t)
+            times.append(time.perf_counter() - t)
+            if shapes is not None:
+                shapes.append(tuple(out.shape))
             return out
         return run
-    trainer._sup_step = timed(trainer._sup_step)
-    trainer._unsup_step = timed(trainer._unsup_step)
+    trainer._sup_step = synced(trainer._sup_step, step_s)
+    trainer._unsup_step = synced(trainer._unsup_step, step_s)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    preprocess.launches = 0                         # the main path starts
+    preprocess.launches = preprocess.augment_launches = 0   # path starts
     t0 = time.perf_counter()
     result = trainer.train(loaders, param_dir=run_dir, log_every=1)
     test_acc = trainer.test(loaders['test'])
     torch.cuda.synchronize()
     main_launches = preprocess.launches             # ... and ends
+    check(preprocess.augment_launches == 0,
+          'the unaugmented path launched the augment kernel')
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -257,58 +378,227 @@ def main():
           f'{peak / 2**20:.1f} MiB; card {smi}', flush=True)
 
     # ------------------------------------------------------------- 6
-    # An Adam step moves a parameter by lr·m/(√v+ε); for a gradient near
-    # ε/√(1-β₂) ≈ 3e-6 that ratio is ill-conditioned, and the float noise of
-    # a cancelling f32 gradient sum (cuDNN and the CPU reduce in different
-    # orders) can move such a parameter by a fraction of lr.
-    lr = train_cfg.lr
     apply_precision(model_cfg)
     check(not torch.backends.cudnn.allow_tf32
           and not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
-    cpu_model = init_model(model_cfg, train_cfg, mu)
-    g = torch.Generator().manual_seed(1)
-    noise = [draw_noise(cpu_model, BATCH, True, 100, g),
-             draw_noise(cpu_model, BATCH, False, 100, g)]
     batches = [(splits['sup'].images[:BATCH], splits['sup'].labels[:BATCH]),
                (splits['unsup'].images[:BATCH],
                 splits['unsup'].labels[:BATCH])]
-
-    def two_steps(device):
-        model = init_model(model_cfg, train_cfg, mu, device)
-        state = create_train_state(model, train_cfg)
-        sup, unsup = make_train_steps(model, train_cfg)
-        mets = []
-        for fn, (x, y), nz in zip((sup, unsup), batches, noise):
-            state, m = fn(state, torch.from_numpy(x).to(device),
-                          torch.from_numpy(y).to(device), 1.0,
-                          noise={k: v.to(device) for k, v in nz.items()})
-            mets.append({k: float(v) for k, v in m.items()})
-        return mets, {k: v.cpu() for k, v in model.state_dict().items()}, \
-            {k: v.cpu() for k, v in state.adam_m.items()}
-
     launches0 = preprocess.launches
-    gpu_m, gpu_p, gpu_adam = two_steps(dev)
-    check(preprocess.launches == launches0 + 2, 'card steps did not launch')
-    cpu_m, cpu_p, cpu_adam = two_steps(torch.device('cpu'))
-    metric_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
-                     for a, b in zip(gpu_m, cpu_m) for k in a)
-    p_diff = {k: float((gpu_p[k] - cpu_p[k]).abs().max()) for k in cpu_p}
-    m_rel = {k: float((gpu_adam[k] - cpu_adam[k]).abs().max())
-             / max(float(cpu_adam[k].abs().max()), 1e-30) for k in cpu_adam}
-    n_far = sum(int(((gpu_p[k] - cpu_p[k]).abs() > 1e-3 * lr).sum())
-                for k in cpu_p)
-    n_par = sum(v.numel() for v in cpu_p.values())
-    worst = lambda d: ', '.join(f'{k} {d[k]:.2e}' for k in
-                                sorted(d, key=d.get, reverse=True)[:3])
-    phase(6, f'card vs CPU, sup+unsup step at B={BATCH}, same state and '
-             f'noise: metrics max rel {metric_rel:.3e} (tol 1e-4); params '
-             f'max abs {max(p_diff.values()):.3e} (tol {0.25 * lr:.1e} = '
-             f'lr/4), {n_far} of {n_par} elements off by > lr/1000; Adam m '
-             f'max abs / leaf max {max(m_rel.values()):.3e} (tol 1e-2)')
-    print(f'  worst params: {worst(p_diff)}; worst Adam m: {worst(m_rel)}')
-    check(metric_rel <= 1e-4, 'card and CPU metrics disagree')
-    check(max(p_diff.values()) <= 0.25 * lr, 'card and CPU params disagree')
-    check(max(m_rel.values()) <= 1e-2, 'card and CPU Adam moments disagree')
+    card_vs_cpu(6, 'sup+unsup step', model_cfg, train_cfg, mu, batches,
+                dev, lambda: check(preprocess.launches == launches0 + 2,
+                                   'card steps did not launch'))
+
+    # ------------------------------------------------------------- 7
+    P, S = 4, 64
+    PS = S + 2 * P
+
+    def aug_case(shape, size, how='drawn', base_off=0):
+        """A u8 batch on the card (at a byte offset into its buffer) and
+        its int32 (dy, dx, fl), drawn on the card, then set by `how`."""
+        buf = torch.randint(0, 256, (math.prod(shape) + base_off,),
+                            dtype=torch.uint8, device=dev, generator=gen)
+        lead, (H, W) = shape[:-3], shape[-3:-1]
+        dy, dx, fl = (v.view(lead) for v in preprocess.draw_crop_flip(
+            gen, math.prod(lead), H, W, size))
+        if how == 'origin':
+            dy.zero_()
+            dx.zero_()
+        elif how == 'far':
+            dy.fill_(H - size)
+            dx.fill_(W - size)
+        elif how in ('flip', 'no_flip'):
+            fl.fill_(int(how == 'flip'))
+        return buf[base_off:].view(shape), dy, dx, fl
+
+    aug_cases = {
+        'bs256': ((BATCH, PS, PS, 3), S, 'drawn', 0),
+        'all_flip': ((BATCH, PS, PS, 3), S, 'flip', 0),
+        'no_flip': ((BATCH, PS, PS, 3), S, 'no_flip', 0),
+        'dy=dx=0': ((BATCH, PS, PS, 3), S, 'origin', 0),
+        f'dy=dx={2 * P}': ((BATCH, PS, PS, 3), S, 'far', 0),
+        '128px': ((2, 136, 136, 3), 128, 'drawn', 0),
+        'one_channel': ((4, 20, 20, 1), 16, 'drawn', 0),
+        'odd_b_unaligned_scalar': ((5, 21, 19, 3), 15, 'drawn', 1),
+        'stacked': ((4, BATCH, PS, PS, 3), S, 'drawn', 0),
+    }
+    aug_max_err = 0.0
+    for label, (shape, size, how, off) in aug_cases.items():
+        u8, dy, dx, fl = aug_case(shape, size, how, off)
+        check((u8.data_ptr() % 16 != 0) == bool(off),
+              f'augment {label}: base alignment not as meant')
+        fn = (preprocess.fused_augment_stacked_given if u8.dim() == 5
+              else preprocess.fused_augment_given)
+        got = fn(u8, dy, dx, fl, size)
+        want = preprocess.augment_reference(u8, dy, dx, fl, size)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        aug_max_err = max(aug_max_err, err)
+        check(torch.equal(got, want),
+              f'augment {label}: kernel != plain (max {err})')
+        check(torch.equal(got.cpu(), preprocess.augment_reference(
+            u8.cpu(), dy.cpu(), dx.cpu(), fl.cpu(), size)),
+            f'augment {label}: card != CPU')
+        if u8.dim() == 5:
+            per_step = torch.stack([preprocess.fused_augment_given(
+                u8[i], dy[i], dx[i], fl[i], size) for i in range(len(u8))])
+            check(torch.equal(got, per_step),
+                  f'augment {label}: stacked != per-step launches')
+    phase(7, f'augment bit-equal to plain on the card and the CPU on '
+             f'{list(aug_cases)} (max_abs_err {aug_max_err}); stacked == '
+             f'per-step launches')
+
+    # ------------------------------------------------------------- 8
+    # 16 distinct padded batches (64 MB; stacked: 4 of 4 x 16 MB) cycled so
+    # that L2 holds no input between launches; offsets drawn beforehand
+    def aug_inputs(lead, count):
+        B = math.prod(lead)
+        return [(torch.randint(0, 256, (*lead, PS, PS, 3), dtype=torch.uint8,
+                               device=dev, generator=gen),
+                 *(v.view(lead) for v in preprocess.draw_crop_flip(
+                     gen, B, PS, PS, S))) for _ in range(count)]
+
+    def aug_bound_ms(images):
+        # each cropped byte read once, each float written once, 12 B of
+        # offsets per image
+        return (images * (S * S * 3 * (1 + 4) + 12)) / rate * 1e3
+
+    step_in = cycler(aug_inputs((BATCH,), 16))
+    stack_in = cycler(aug_inputs((4, BATCH), 4))
+    launches0 = preprocess.augment_launches
+    aug_ms, aug_call_ms = cuda_ms(
+        lambda: preprocess.fused_augment_given(*step_in(), S), 100)
+    # the plain version is ~18 launches a call: 30 calls fill the queue
+    # half way
+    aug_plain_ms, aug_plain_call_ms = cuda_ms(
+        lambda: preprocess.augment_reference(*step_in(), S), 30)
+    stk_ms, stk_call_ms = cuda_ms(
+        lambda: preprocess.fused_augment_stacked_given(*stack_in(), S), 50)
+    stk_plain_ms, _ = cuda_ms(
+        lambda: preprocess.augment_reference(*stack_in(), S), 30)
+    aug_timing_launches = preprocess.augment_launches - launches0
+    # information only, not a library call: the fewest torch calls that
+    # compute the same function (index gather, .float(), * scale)
+    idx = []
+    for u8, dy, dx, fl in [step_in() for _ in range(16)]:
+        ar = torch.arange(S, device=dev)
+        rows = (dy[:, None] + ar)[:, :, None]
+        cols = (dx[:, None] + torch.where(fl[:, None] > 0, S - 1 - ar,
+                                          ar))[:, None, :]
+        idx.append((u8, torch.arange(BATCH, device=dev)[:, None, None],
+                    rows, cols))
+    scale_t = torch.full((), 1.0 / 255.0, device=dev)
+    idx_in = cycler(idx)
+
+    def composed():
+        u8, b, r, c = idx_in()
+        return u8[b, r, c].float() * scale_t
+    comp_ms, _ = cuda_ms(composed, 100)
+    step_bound = aug_bound_ms(BATCH)
+    stk_bound = aug_bound_ms(4 * BATCH)
+    phase(8, f'timed augment at ({BATCH}, {PS}, {PS}, 3) -> {S} and '
+             f'stacked (4, {BATCH}, ...): device ms per call (host ms per '
+             f'call)')
+    print(f'kernels augment: per-step kernel_ms {aug_ms:.5f} '
+          f'({aug_call_ms:.5f}), plain_ms {aug_plain_ms:.5f} '
+          f'({aug_plain_call_ms:.5f}), bound_ms {step_bound:.5f} '
+          f'({step_bound / aug_ms:.1%} of it); stacked n=4 kernel_ms '
+          f'{stk_ms:.5f} ({stk_call_ms:.5f}), plain_ms {stk_plain_ms:.5f}, '
+          f'bound_ms {stk_bound:.5f} ({stk_bound / stk_ms:.1%} of it); '
+          f'library_ms null (no single torch call crops, flips and scales '
+          f'per image); {aug_timing_launches} timing launches; card {smi}',
+          flush=True)
+    print(f'  information: index gather + .float() + * scale (3 calls) '
+          f'{comp_ms:.5f} ms per step batch', flush=True)
+
+    # ------------------------------------------------------------- 9
+    model_a, train_a = default_celeba64(sup=0.5, n_epochs=2,
+                                        batch_size=BATCH, augment_pad=P)
+    splits_a = synthetic_splits(n_train=2048, n_valid=512, n_test=512,
+                                sup_frac=0.5, learnable_signal=True,
+                                train_pad=P)
+    mu_a = cooccurrence_gating_matrix(splits_a['sup'].labels)
+    loaders_a = {k: BatchLoader(v, BATCH, seed=0)
+                 for k, v in splits_a.items()}
+    run_a = os.path.join(ROOT, 'build', 'chip_smoke_augment')
+    shutil.rmtree(run_a, ignore_errors=True)
+    trainer_a = Trainer(model_a, train_a, mu_init=mu_a,
+                        checkpoint_dir=os.path.join(run_a, 'checkpoints'),
+                        metrics_path=os.path.join(run_a, 'metrics.csv'),
+                        steps_per_dispatch=4, device=dev)
+    p0 = {k: v.clone() for k, v in trainer_a.model.state_dict().items()}
+    temp0 = trainer_a.gating_temp
+    aug_s, chunk_s, aug_shapes = [], [], []
+    trainer_a._augment = synced(trainer_a._augment, aug_s, aug_shapes)
+    trainer_a._chunk_step = synced(trainer_a._chunk_step, chunk_s)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    preprocess.launches = preprocess.augment_launches = 0   # path starts
+    t0 = time.perf_counter()
+    result_a = trainer_a.train(loaders_a, param_dir=run_a, log_every=1)
+    test_acc_a = trainer_a.test(loaders_a['test'])
+    torch.cuda.synchronize()
+    aug_launches = preprocess.augment_launches      # ... and ends
+    aug_path_dequant = preprocess.launches
+    wall_a = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated(dev)
+
+    steps_a = trainer_a.state.step
+    eval_a = 2 * loaders_a['valid'].epoch_batches \
+        + loaders_a['test'].epoch_batches
+    check(steps_a == 16, f'augmented: expected 16 train steps, ran {steps_a}')
+    check(aug_launches == 4 and aug_shapes == [(4, BATCH, S, S, 3)] * 4,
+          f'augmented: {aug_launches} augment launches of {aug_shapes}, '
+          f'expected 4 of 4 x {BATCH} images')
+    check(aug_path_dequant == eval_a == 6,
+          f'augmented: dequant launches {aug_path_dequant} != {eval_a} '
+          f'eval batches')
+    rows_a = trainer_a.metrics.rows
+    check(len(rows_a) == steps_a and all(
+        math.isfinite(r[k]) for r in rows_a
+        for k in ('loss', 'elbo', 'log_pxz', 'kl', 'log_qy_zc', 'c_sum')),
+        'augmented: a train loss or metric is not finite')
+    moved = [k for k, v in trainer_a.model.state_dict().items()
+             if not torch.equal(v, p0[k])]
+    check(len(moved) == len(p0), f'augmented: params that did not move: '
+          f'{sorted(set(p0) - set(moved))}')
+    check('mu' in moved, 'augmented: mu did not move')
+    check(abs(trainer_a.gating_temp - temp0 * 0.99 ** 2) < 1e-12,
+          f'augmented: temperature {trainer_a.gating_temp} != '
+          f'{temp0} * 0.99^2')
+    check(0.0 <= test_acc_a <= 1.0 and math.isfinite(test_acc_a),
+          f'augmented: test accuracy {test_acc_a}')
+    chunk_med = statistics.median(
+        [a + c for a, c in zip(aug_s[1:], chunk_s[1:])])
+    phase(9, f'augmented: trained {steps_a} steps (2 epochs, sup 0.5, bs '
+             f'{BATCH}, augment_pad {P}, steps_per_dispatch 4) + {eval_a} '
+             f'eval batches in {wall_a:.2f} s; augment launches '
+             f'{aug_launches} of {aug_shapes[0][0] * aug_shapes[0][1]} '
+             f'images, dequant launches {aug_path_dequant}; best val acc '
+             f'{result_a["best_val_accuracy"]:.4f}, test acc '
+             f'{test_acc_a:.4f}')
+    print(f'slice_augment: chunk_ms median {chunk_med * 1e3:.3f} (chunks '
+          f'2-{len(chunk_s)}, augment + 4 steps, synchronized; first '
+          f'{(aug_s[0] + chunk_s[0]) * 1e3:.1f}), augment_ms median '
+          f'{statistics.median(aug_s[1:]) * 1e3:.3f}, step_ms '
+          f'{chunk_med / 4 * 1e3:.3f}, {4 * BATCH / chunk_med:.0f} img/s, '
+          f'trainer meter {result_a["images_per_sec"]:.0f} img/s, peak '
+          f'memory {peak_a / 2**20:.1f} MiB; card {smi}', flush=True)
+
+    # ------------------------------------------------------------- 10
+    g = torch.Generator().manual_seed(2)
+    draws = [torch.stack(v) for v in zip(*(
+        preprocess.draw_crop_flip(g, BATCH, PS, PS, S) for _ in range(2)))]
+    batches_a = [(splits_a[k].images[:BATCH], splits_a[k].labels[:BATCH])
+                 for k in ('sup', 'unsup')]
+    launches0 = (preprocess.launches, preprocess.augment_launches)
+    card_vs_cpu(10, 'augmented sup+unsup step', model_a, train_a, mu_a,
+                batches_a, dev, lambda: check(
+                    (preprocess.launches, preprocess.augment_launches)
+                    == (launches0[0], launches0[1] + 2),
+                    'augmented card steps: expected 2 augment launches '
+                    'and no dequant'), draws=draws)
 
     # ------------------------------------------------------------- out
     record = {'kernels': [{
@@ -323,6 +613,18 @@ def main():
         'bound_ms': bound_ms,
         'bound_by': 'bytes',
         'library_ms': library_ms,
+    }, {
+        'name': 'augment',
+        'route': 'cuda',
+        'source': 'gltvae_torch/csrc/augment.cu',
+        'replaces': 'gltvae/ops/pallas/preprocess.py:198',
+        'launches': aug_launches,
+        'max_abs_err': aug_max_err,
+        'ms': stk_ms,                   # the main path's stacked shape
+        'plain_ms': stk_plain_ms,
+        'bound_ms': stk_bound,
+        'bound_by': 'bytes',
+        'library_ms': None,             # no single torch call computes it
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -8,7 +8,8 @@ Package layout
 --------------
 - ``gltvae_torch.config``   ModelConfig/TrainConfig/DataConfig, model_config.json
 - ``gltvae_torch.bridge``   gltvae params/Adam pytrees <-> torch state_dicts
-- ``gltvae_torch.ops``      distributions, samplers, gating init, the dequant kernel
+- ``gltvae_torch.ops``      distributions, samplers, gating init, the dequant
+                            and augment kernels
 - ``gltvae_torch.models``   encoder/decoder/classifier/cond-prior, CCVAE losses
 - ``gltvae_torch.train``    Keras Adam state, steps, Trainer, metrics, checkpoints
 - ``gltvae_torch.data``     in-memory datasets, batch loader, synthetic fixture

@@ -1,7 +1,8 @@
 """Command-line entry point of the port (counterpart of train.py).
 
     python -m gltvae_torch.cli --synthetic --do-train --epochs 2 --sup 0.5 \\
-        -bs 256 --output-dir runs/torch [--device cuda|cpu]
+        -bs 256 --output-dir runs/torch [--device cuda|cpu] \\
+        [--augment-pad 4] [--steps-per-dispatch 4]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Per supervision fraction
 it builds the configs, the loaders and the gating init, trains and/or tests
@@ -54,6 +55,16 @@ def parse_args(argv=None):
     p.add_argument('--deterministic-eval', action='store_true')
     p.add_argument('--resume', action='store_true',
                    help='resume from the latest checkpoint if one exists')
+    p.add_argument('--augment-pad', type=int, default=0, metavar='P',
+                   help='train-time augmentation: train images are made at '
+                        'S+2P and the augment kernel crops them back to S '
+                        'on the device (random offset, random horizontal '
+                        'flip, x/255 as a multiply). 0 = off (reference '
+                        'semantics)')
+    p.add_argument('--steps-per-dispatch', type=int, default=1,
+                   help='train steps per dispatch: one host->device copy '
+                        'and one augment launch per chunk of N steps; '
+                        'results equal per-step dispatch bit for bit')
     p.add_argument('--parity', action='store_true',
                    help='shuffle once at init (the reference loader) '
                         'instead of every epoch')
@@ -79,7 +90,8 @@ def build_configs(args, sup):
     train_cfg = TrainConfig(n_epochs=args.epochs, batch_size=args.batch_size,
                             lr=args.lr, perc_supervision=sup,
                             gating_reg=args.l1_reg, seed=args.seed,
-                            deterministic_eval=args.deterministic_eval)
+                            deterministic_eval=args.deterministic_eval,
+                            augment_pad=args.augment_pad)
     return model_cfg, train_cfg
 
 
@@ -96,7 +108,8 @@ def make_loaders(args, model_cfg, train_cfg):
         n_test=max(64, args.synthetic_n // 8),
         sup_frac=train_cfg.perc_supervision,
         image_size=model_cfg.image_size, y_dim=model_cfg.y_dim,
-        seed=args.seed, learnable_signal=args.synthetic_signal)
+        seed=args.seed, learnable_signal=args.synthetic_signal,
+        train_pad=train_cfg.augment_pad)
     loaders = {k: BatchLoader(v, train_cfg.batch_size, seed=args.seed,
                               reshuffle_each_epoch=not args.parity)
                for k, v in splits.items()}
@@ -128,6 +141,7 @@ def run(args, sup: float):
     trainer = Trainer(model_cfg, train_cfg, mu_init=mu_init,
                       checkpoint_dir=os.path.join(param_dir, 'checkpoints'),
                       metrics_path=os.path.join(param_dir, 'metrics.csv'),
+                      steps_per_dispatch=args.steps_per_dispatch,
                       device=args.device)
     os.makedirs(param_dir, exist_ok=True)
     if args.do_train or recorded is None:

@@ -174,16 +174,9 @@ def check_supported(model: ModelConfig, train: Optional[TrainConfig] = None,
         raise NotImplementedError(
             f'remat={train.remat!r}: ROADMAP Queue 1 item 6 '
             '(torch.utils.checkpoint)')
-    if train is not None and train.augment_pad > 0:
-        raise NotImplementedError(
-            'augment_pad > 0: ROADMAP Queue 1 item 9 and Queue 2 item 2 '
-            '(fused crop+flip+normalize kernel)')
     if data is not None and data.device_resize:
         raise NotImplementedError(
             'device_resize: ROADMAP Queue 1 item 11 (ops/resize.py)')
-    if data is not None and data.augment_pad > 0:
-        raise NotImplementedError(
-            'DataConfig.augment_pad > 0: ROADMAP Queue 1 item 9')
 
 
 def apply_precision(model: ModelConfig) -> None:

@@ -24,11 +24,12 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'gltvae_torch'
 
 # Never add --use_fast_math or -prec-div=false: the dequant kernel's divide
-# form must round exactly like torch's f32 division.
+# form must round exactly like torch's f32 division, and every kernel's
+# multiply like torch's.
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-KERNEL_SOURCES = ('dequant',)
+KERNEL_SOURCES = ('dequant', 'augment')
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
 """Training engine: epochs with the reference's sup/unsup interleave
-(counterpart of gltvae/train/loop.py, per-step host path).
+(counterpart of gltvae/train/loop.py, single device).
 
 Schedule semantics as in the reference Learner.train (gated_ccvae.py:
 313-419) and the JAX Trainer:
@@ -10,10 +10,20 @@ Schedule semantics as in the reference Learner.train (gated_ccvae.py:
 - gating temperature ×0.99 an epoch for learnable gating;
 - a NaN-gate guard checked every ``nan_check_every`` steps.
 
-Each step ships one uint8 batch to the device and runs the train step
-there; metrics stay on the device until the logger flushes. Multi-step
-dispatch, resident splits, TensorBoard and augmentation are not ported
-yet; a mesh or an augment_pad raises NotImplementedError.
+Each dispatch ships its uint8 batches to the device in one copy and runs
+the train steps there; metrics stay on the device until the logger
+flushes. With ``steps_per_dispatch`` n > 1 a dispatch is a chunk of up to
+n steps (``make_mixed_scan_train_step``), cut by the JAX Trainer's rule; it
+equals n per-step dispatches bit for bit.
+
+With ``TrainConfig.augment_pad`` P > 0 the train batches arrive padded to
+S+2P and the augment kernel crops each back to S x S (random offset,
+random horizontal flip, x * 1/255) on the device, one launch per dispatch.
+The draw for global step s comes from a generator seeded by
+``step_seed(seed + 2, s)``, so the crops do not depend on
+``steps_per_dispatch``. Eval batches are never augmented. Resident
+splits, TensorBoard and a mesh are not ported yet; a mesh raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,11 +41,13 @@ from gltvae_torch import resolve_device
 from gltvae_torch.config import (CELEBA_EASY_LABELS, CELEBA_LABELS,
                                  ModelConfig, TrainConfig, apply_precision,
                                  check_supported)
+from gltvae_torch.ops import preprocess
 from gltvae_torch.train.checkpoint import (CheckpointManager,
                                            export_gating_matrix)
 from gltvae_torch.train.metrics import MetricsLogger, Throughput
 from gltvae_torch.train.state import create_train_state, init_model, step_seed
 from gltvae_torch.train.steps import (make_elbo_eval_step, make_eval_step,
+                                      make_mixed_scan_train_step,
                                       make_train_steps)
 
 logger = logging.getLogger(__name__)
@@ -52,6 +64,7 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  nan_check_every: int = 50,
+                 steps_per_dispatch: int = 1,
                  device=None,
                  mesh=None):
         if mesh is not None:
@@ -62,10 +75,15 @@ class Trainer:
         apply_precision(model_cfg)
         self.cfg = train_cfg
         self.nan_check_every = nan_check_every
+        self.steps_per_dispatch = max(1, steps_per_dispatch)
         model = init_model(model_cfg, train_cfg, mu_init, self.device)
         self.model = model
         self.state = create_train_state(model, train_cfg)
         self._sup_step, self._unsup_step = make_train_steps(model, train_cfg)
+        # a chunk of n > 1 steps: the same steps in a loop, each kind as
+        # its flag says (uniform chunks are mixed chunks of one kind)
+        self._chunk_step = (make_mixed_scan_train_step(model, train_cfg)
+                            if self.steps_per_dispatch > 1 else None)
         self._eval_step = make_eval_step(model, train_cfg)
         self._elbo_step = make_elbo_eval_step(model, train_cfg)
         self.gating_temp = train_cfg.gating_temp_for(model_cfg)
@@ -84,6 +102,28 @@ class Trainer:
         x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         y = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
         return x, y
+
+    def _augment(self, u8: torch.Tensor) -> torch.Tensor:
+        """Crop + flip + scale a padded train batch, [B, ...] or stacked
+        [n, B, ...], on the device: one launch. Inner step i of a dispatch
+        draws from global step ``state.step + i``."""
+        pad, size = self.cfg.augment_pad, self.model.cfg.image_size
+        expect = size + 2 * pad
+        if u8.shape[-3] != expect or u8.shape[-2] != expect:
+            raise ValueError(
+                f'augment_pad desync: TrainConfig.augment_pad={pad} '
+                f'expects {expect}x{expect} train images but the '
+                f'loader produced {u8.shape[-3]}x{u8.shape[-2]} — set '
+                f'DataConfig.augment_pad to the same value')
+        n = u8.shape[0] if u8.dim() == 5 else 1
+        gens = []
+        for i in range(n):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(step_seed(self.cfg.seed + 2, self.state.step + i))
+            gens.append(g)
+        if u8.dim() == 5:
+            return preprocess.fused_augment_stacked(u8, gens, size)
+        return preprocess.fused_augment(u8, gens[0], size)
 
     # ------------------------------ schedule ------------------------------
     def epoch_schedule(self, loaders) -> tuple[int, int, int]:
@@ -112,6 +152,23 @@ class Trainer:
             ctr += int(f)
             flags.append(bool(f))
         return flags
+
+    @staticmethod
+    def _chunk_sizes(flags, steps_per_dispatch: int, mixed: bool):
+        """The dispatch sizes of one epoch, by the JAX Trainer's rule: up to
+        steps_per_dispatch steps each; unless mixed, a chunk also stops at
+        the first flip of kind."""
+        sizes, i = [], 0
+        while i < len(flags):
+            n = min(steps_per_dispatch, len(flags) - i)
+            if not mixed:
+                run = 1
+                while run < n and flags[i + run] == flags[i]:
+                    run += 1
+                n = run
+            sizes.append(n)
+            i += n
+        return sizes
 
     # ------------------------------- train -------------------------------
     def train(self, loaders: Dict, param_dir: Optional[str] = None,
@@ -146,21 +203,43 @@ class Trainer:
             pending_gates = []
             t_epoch = time.perf_counter()
             epoch_imgs0 = self.throughput.images_total
-            for i, sup in enumerate(flags):
-                x, y = self._place(next(sup_iter if sup else unsup_iter))
-                step_fn = self._sup_step if sup else self._unsup_step
-                self.state, ms = step_fn(self.state, x, y, self.gating_temp)
-                pending_gates.append(ms['c_nan'])
-                self.throughput.step(len(x))
-                if i % log_every == 0:
-                    self.metrics.log(
-                        int(i + epoch * total),
-                        {k: v for k, v in ms.items() if k != 'c_nan'},
-                        epoch=epoch, supervised=int(sup))
-                if (i + 1) % self.nan_check_every == 0 or i + 1 == total:
+            # semi-sup interleaves (period >= 2) dispatch mixed chunks;
+            # other schedules cut uniform chunks at the first kind flip
+            mixed = self.steps_per_dispatch > 1 and period > 1
+            i = 0
+            for n in self._chunk_sizes(flags, self.steps_per_dispatch, mixed):
+                chunk = flags[i:i + n]
+                bx, by = zip(*(next(sup_iter if f else unsup_iter)
+                               for f in chunk))
+                if n > 1:                       # one stacked copy
+                    x, y = self._place((np.stack(bx), np.stack(by)))
+                else:
+                    x, y = self._place((bx[0], by[0]))
+                if self.cfg.augment_pad > 0:
+                    x = self._augment(x)
+                if n > 1:
+                    self.state, ms = self._chunk_step(
+                        self.state, x, y, chunk, self.gating_temp)
+                else:
+                    step_fn = self._sup_step if chunk[0] else self._unsup_step
+                    self.state, ms = step_fn(self.state, x, y,
+                                             self.gating_temp)
+                pending_gates.append(ms['c_nan'].any())
+                self.throughput.step(n * len(bx[0]))
+                # every inner step on the log_every cadence gets its own
+                # row, so metrics.csv is the same for any steps_per_dispatch
+                for j in range(n):
+                    if (i + j) % log_every == 0:
+                        self.metrics.log(
+                            int(i + j + epoch * total),
+                            {k: (v[j] if n > 1 else v)
+                             for k, v in ms.items() if k != 'c_nan'},
+                            epoch=epoch, supervised=int(chunk[j]))
+                i += n
+                if i % self.nan_check_every < n or i == total:
                     if bool(torch.stack(pending_gates).any()):
                         raise NanGateError(
-                            f'NaN gates at epoch {epoch} step {i + 1}')
+                            f'NaN gates at epoch {epoch} step {i}')
                     pending_gates.clear()
 
             # ----------------------- validation -----------------------

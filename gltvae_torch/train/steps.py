@@ -1,20 +1,23 @@
-"""Train and eval steps (counterpart of gltvae/train/steps.py, per-step
-host path).
+"""Train and eval steps (counterpart of gltvae/train/steps.py).
 
 ``make_train_steps`` returns (sup_step, unsup_step):
 ``(state, x, y, gating_temp, noise=None) -> (state, metrics)``. A step
-dequantizes the uint8 batch on the device (the dequant kernel), draws its
-noise from the state's per-step generator unless ``noise`` is given, takes
-the loss and its gradient, and applies Keras Adam in place. ``metrics``
-holds 0-d device tensors, so a step never waits for the device.
+dequantizes a uint8 batch on the device (the dequant kernel; an augmented
+batch arrives as f32 already), draws its noise from the state's per-step
+generator unless ``noise`` is given, takes the loss and its gradient, and
+applies Keras Adam in place. ``metrics`` holds 0-d device tensors, so a
+step never waits for the device.
 
-The scan, mixed-scan and resident variants are not ported yet (ROADMAP
-Queue 1 items 6 and 10).
+``make_scan_train_steps`` and ``make_mixed_scan_train_step`` are the
+multi-step chunks of ``steps_per_dispatch > 1``: a Python loop of the same
+steps over a stacked [n, B, ...] batch already on the device, with metrics
+stacked to [n]. They equal n per-step calls bit for bit. The resident
+variants are not ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -92,6 +95,39 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig
         return _apply(state, loss, aux)
 
     return sup_step, unsup_step
+
+
+def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig
+                               ) -> Callable:
+    """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]):
+    inner step j runs the sup step where sup_mask[j], else the unsup step,
+    on xs[j], ys[j]."""
+    sup, unsup = make_train_steps(model, train_cfg)
+
+    def chunk(state: TrainState, xs, ys, sup_mask: Sequence[bool],
+              gating_temp):
+        if not len(xs) == len(ys) == len(sup_mask):
+            raise ValueError(f'chunk of {len(xs)} batches, {len(ys)} label '
+                             f'batches and {len(sup_mask)} flags')
+        mets = []
+        for x, y, m in zip(xs, ys, sup_mask):
+            state, met = (sup if m else unsup)(state, x, y, gating_temp)
+            mets.append(met)
+        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+    return chunk
+
+
+def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig
+                          ) -> Tuple[Callable, Callable]:
+    """Uniform chunks (scan_sup, scan_unsup):
+    (state, xs, ys, gating_temp) -> (state, metrics [n])."""
+    chunk = make_mixed_scan_train_step(model, train_cfg)
+
+    def make(sup: bool):
+        def scan(state: TrainState, xs, ys, gating_temp):
+            return chunk(state, xs, ys, [sup] * len(xs), gating_temp)
+        return scan
+    return make(True), make(False)
 
 
 def make_eval_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:

@@ -134,12 +134,18 @@ def test_unsupported_model_values_raise(bad):
 
 
 @pytest.mark.parametrize('train,data', [
-    (dict(remat='full'), {}), (dict(augment_pad=2), {}),
+    (dict(remat='full'), {}), (dict(augment_pad=2), dict(augment_pad=2)),
     ({}, dict(device_resize=True))])
 def test_unsupported_train_data_values_raise(train, data):
+    """Each value raises naming its ROADMAP item, except augment_pad, which
+    the port runs now (in TrainConfig and DataConfig both)."""
+    args = (tcfg.ModelConfig(), tcfg.TrainConfig(**train),
+            tcfg.DataConfig(**data))
+    if 'augment_pad' in train:
+        tcfg.check_supported(*args)
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcfg.check_supported(tcfg.ModelConfig(), tcfg.TrainConfig(**train),
-                             tcfg.DataConfig(**data))
+        tcfg.check_supported(*args)
 
 
 # ----------------------------- bridge -----------------------------

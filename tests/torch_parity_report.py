@@ -9,6 +9,8 @@ that the record states observed numbers and not only limits.
 
 import tests.conftest  # noqa: F401  (JAX on the CPU, as the suite runs it)
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +18,12 @@ import torch
 
 import gltvae.config as jcfg
 from gltvae.models.ccvae import CCVAE as JCCVAE, Temps as JTemps
-from gltvae.ops.pallas.preprocess import normalize_images
+from gltvae.ops.pallas.preprocess import (fused_augment_given as j_aug,
+                                          fused_augment_stacked_given
+                                          as j_aug_stacked,
+                                          normalize_images)
 from gltvae.train.steps import _as_f32_image
+from tests.test_torch_augment import CASES, _case, _draws, augmented_steps
 from tests.test_torch_ccvae import B, K, _jax_loss_and_grad, _setup
 from tests.test_torch_config_bridge import (SCHEMES, jax_params, scheme_mu,
                                             torch_model)
@@ -27,7 +33,8 @@ from tests.tf_twin import reconstruct_noise
 import gltvae_torch.config as tcfg
 from gltvae_torch.bridge import state_dict_to_params
 from gltvae_torch.models.ccvae import Temps
-from gltvae_torch.ops.preprocess import dequant
+from gltvae_torch.ops.preprocess import (dequant, fused_augment_given,
+                                         fused_augment_stacked_given)
 
 torch.set_num_threads(2)
 
@@ -55,6 +62,26 @@ def dequant_rows():
         out.append((f'dequant mul vs normalize_images {shape}', max_abs(
             dequant(t, 'mul'), normalize_images(jnp.asarray(u8),
                                                 interpret=True))))
+    return out
+
+
+def augment_rows():
+    """Plain augment vs gltvae's Pallas kernel (interpret), same draws."""
+    out = []
+    for label in CASES:
+        u8, draws, S = _case(label)
+        got = fused_augment_given(*map(torch.from_numpy, (u8, *draws)), S)
+        want = j_aug(*map(jnp.asarray, (u8, *draws)), S, interpret=True)
+        out.append((f'augment vs fused_augment_given, {label}',
+                    max_abs(got, want)))
+    r = np.random.RandomState(1)
+    u8 = r.randint(0, 256, (3, 4, 20, 20, 3), dtype=np.uint8)
+    draws = _draws(r, (3, 4), 20, 20, 16)
+    got = fused_augment_stacked_given(*map(torch.from_numpy, (u8, *draws)),
+                                      16)
+    want = j_aug_stacked(*map(jnp.asarray, (u8, *draws)), 16, interpret=True)
+    out.append(('augment stacked vs fused_augment_stacked_given (3,4,20,20,3)',
+                max_abs(got, want)))
     return out
 
 
@@ -116,8 +143,13 @@ def loss_rows():
 
 def step_rows():
     out = []
-    for i, (tmet, jmet, state, jstate) in enumerate(three_steps()):
-        tag = f'step {i + 1} ({"sup" if i != 1 else "unsup"})'
+    # lazily: the port's state is updated in place from step to step
+    runs = itertools.chain(
+        ((f'step {i + 1} ({"sup" if i != 1 else "unsup"})', r)
+         for i, r in enumerate(three_steps())),
+        ((f'augmented step {i + 1} ({"sup" if i == 0 else "unsup"})', r[:4])
+         for i, r in enumerate(augmented_steps())))
+    for tag, (tmet, jmet, state, jstate) in runs:
         out.append((f'{tag}: params max abs', max(
             max_abs(g, w) for g, w in zip(
                 jax.tree.leaves(state_dict_to_params(
@@ -134,8 +166,8 @@ def step_rows():
 
 
 def main():
-    for label, value in (dequant_rows() + network_rows() + loss_rows()
-                         + step_rows()):
+    for label, value in (dequant_rows() + augment_rows() + network_rows()
+                         + loss_rows() + step_rows()):
         print(f'{label}: {value:.3e}', flush=True)
 
 
