@@ -5,11 +5,15 @@
 
 Phases, each printed as it runs; any failure exits non-zero with no result:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA;
-2. build every CUDA kernel of the port from csrc/ (one nvcc per source);
-3. each kernel against its plain torch version on the card, bit for bit,
-   at the main path's shape, a ragged size and an unaligned base pointer;
-4. kernel timing with CUDA events beside its bound, the plain version and
-   one PyTorch call computing the same function;
+2. build every CUDA kernel of the port from csrc/ (one nvcc per source)
+   and print ptxas's registers, shared memory and spills per kernel;
+3. the dequant kernel against its plain torch version on the card and on
+   the CPU, bit for bit, at the main path's shape, ragged sizes, sizes
+   around whole TMA tiles (k*tile +- 1, one tile less one) and every
+   unaligned base pointer (offsets 1..15);
+4. dequant timing with CUDA events beside its bound, the plain version and
+   one PyTorch call computing the same function (and, for information,
+   u8.float(): one call moving the same bytes);
 5. the main path: the Trainer trains the full-width CelebA-64 gated CCVAE
    (z=45, y=18, learnable/inferred, k=100, f32, batch 256) at sup 0.5 for
    2 epochs on synthetic data, then tests; launch counts prove the path
@@ -18,8 +22,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    state and noise must agree;
 7. the augment kernel (crop + flip + scale) against its plain version on
    the card and on the CPU, bit for bit: drawn, extreme and flip cases at
-   the main path's shape, 128 px, one channel, an odd batch at an
-   unaligned base, and the stacked form against per-step launches;
+   the main path's shape, 128 px, one channel (also at 128 px), five
+   channels, an odd batch at an unaligned base, the last image of the
+   tensor cropped at dy = H - S at unaligned bases, source rows too wide
+   for 48 KB of shared memory, and the stacked form against per-step
+   launches;
 8. augment timing at (256, 72, 72, 3) -> 64 and stacked (4, 256, ...),
    beside its byte bound and the plain version;
 9. the augmented path: the Trainer trains the same model with
@@ -43,9 +50,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 256
-# Peak device-memory rate by card (NVIDIA data sheets), bytes/s.
-MEM_RATE = (('H100 PCIe', 2.0e12), ('H100 NVL', 3.9e12), ('H200', 4.8e12),
-            ('H100', 3.35e12))
 
 
 def check(cond, msg):
@@ -55,35 +59,6 @@ def check(cond, msg):
 
 def phase(n, text):
     print(f'[phase {n}] {text}', flush=True)
-
-
-def cuda_ms(fn, reps, warmup=10):
-    """(device ms, host ms) per call of fn() on the current stream.
-
-    The device time is taken with CUDA events while a sleep kernel holds
-    the stream, so the host enqueues all `reps` calls before the first
-    runs: the events then see the calls back to back, without the host's
-    launch overhead between them. The host time is the wall time per call
-    of the enqueue loop (what a caller that waits on nothing pays). The
-    queue holds about 1,000 launches, so reps x (kernels per call) stays
-    below that, or the host waits for the sleep."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(200_000_000)          # ~0.1 s of device time
-    ev[1].record()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = (time.perf_counter() - t) * 1e3
-    ev[2].record()
-    torch.cuda.synchronize()
-    check(host_ms < ev[0].elapsed_time(ev[1]),
-          'the sleep kernel ended before the host enqueued every call')
-    return ev[1].elapsed_time(ev[2]) / reps, host_ms / reps
 
 
 def card_vs_cpu(n, label, model_cfg, train_cfg, mu, batches, dev,
@@ -205,6 +180,8 @@ def main():
     from gltvae_torch.data.synthetic import synthetic_splits
     from gltvae_torch.ops import _build, preprocess
     from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.time_kernels import (augment_bound_ms, cuda_ms, cycler,
+                                           dequant_bound_ms, memory_rate)
     from gltvae_torch.train.loop import Trainer
 
     # ------------------------------------------------------------- 1
@@ -214,7 +191,7 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    rate = next((r for name, r in MEM_RATE if name in kind), 3.35e12)
+    rate = memory_rate(kind)
     phase(1, f'torch {torch.__version__} cuda {torch.version.cuda} '
              f'device {kind!r} x{count}; memory rate for bounds '
              f'{rate / 1e12:.2f} TB/s')
@@ -226,7 +203,8 @@ def main():
     phase(2, f'built {list(_build.KERNEL_SOURCES)} in {build_s:.1f} s')
     for name in _build.KERNEL_SOURCES:
         for line in _build.build_log(name).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if any(w in line for w in ('Compiling entry', 'registers',
+                                       'spill')):
                 print(f'  ptxas {name}: {line.strip()}')
 
     # ------------------------------------------------------------- 3
@@ -235,6 +213,7 @@ def main():
     n_main = math.prod(shape)
     buf = torch.randint(0, 256, (n_main + 64,), dtype=torch.uint8,
                         device=dev, generator=gen)
+    tile = preprocess.DEQUANT_TILE
     cases = {
         'bs256': buf[:n_main].view(shape),
         'ragged': buf[:3 * 5 * 7 * 3].view(3, 5, 7, 3),            # %16 = 11
@@ -242,7 +221,21 @@ def main():
         'all_bytes': torch.arange(256, dtype=torch.uint8,
                                   device=dev).view(1, 16, 16, 1),
     }
-    check(cases['unaligned'].data_ptr() % 16 != 0, 'unaligned case aligned')
+    for k in (1, 3):                    # whole TMA tiles, one byte more or less
+        cases[f'{k}tile-1'] = buf[:k * tile - 1]
+        cases[f'{k}tile+1'] = buf[:k * tile + 1]
+    for off in range(1, 16):            # every unaligned base: head + tiles
+        cases[f'off{off}'] = buf[off:off + 2 * tile + 1]
+    cases['off5_3tile-1'] = buf[5:5 + 3 * tile - 1]
+    # six tiles a block: each stage of the TMA ring refilled at least once
+    grid = (preprocess.DEQUANT_BLOCKS_PER_SM
+            * torch.cuda.get_device_properties(dev).multi_processor_count)
+    cases['ring_wraps_off3'] = torch.randint(
+        0, 256, (6 * grid * tile + 4100,), dtype=torch.uint8, device=dev,
+        generator=gen)[3:]
+    check(all(u8.data_ptr() % 16 != 0 for label, u8 in cases.items()
+              if label.startswith(('unaligned', 'off', 'ring'))),
+          'unaligned case aligned')
     max_err = 0.0
     for label, u8 in cases.items():
         for mode in ('div', 'mul'):
@@ -263,16 +256,11 @@ def main():
              f'(max_abs_err {max_err}); u8.float()/255.0 on the card '
              f'differs from the divide form on {lib_vs_div} byte values '
              f'and from the multiply form on {lib_vs_mul}')
+    # the ring case's 19 MB input and 78 MB outputs must not count in the
+    # main path's peak memory (phase 5)
+    del cases, u8, got, want
 
     # ------------------------------------------------------------- 4
-    def cycler(items):
-        state = {'i': 0}
-
-        def nxt():
-            state['i'] = (state['i'] + 1) % len(items)
-            return items[state['i']]
-        return nxt
-
     # 16 distinct inputs (50 MB) cycled so that the 50 MB L2 holds no
     # input between launches, as in a train step that gets a fresh batch
     ins = [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
@@ -286,9 +274,10 @@ def main():
         lambda: preprocess.dequant_reference(nxt()), 100)
     library_ms, library_call_ms = cuda_ms(lambda: nxt().float() / 255.0,
                                           100)
+    same_bytes_ms, _ = cuda_ms(lambda: nxt().float(), 100)
     warm_ms, _ = cuda_ms(lambda: preprocess.dequant(ins[0]), 100)
     bytes_moved = n_main * (1 + 4)
-    bound_ms = bytes_moved / rate * 1e3
+    bound_ms = dequant_bound_ms(n_main, rate)
     phase(4, 'timed dequant at (256, 64, 64, 3): device ms per call '
              '(host ms per call)')
     print(f'kernels dequant: kernel_ms {kernel_ms:.5f} ({kernel_call_ms:.5f})'
@@ -298,6 +287,9 @@ def main():
           f'({bytes_moved} B at {rate / 1e12:.2f} TB/s, '
           f'{bound_ms / kernel_ms:.1%} of it); {timing_launches} timing '
           f'launches; card {smi}', flush=True)
+    print(f'  information: u8.float() (one call, the same bytes, scale 1) '
+          f'{same_bytes_ms:.5f} ms, {bound_ms / same_bytes_ms:.1%} of the '
+          f'bound', flush=True)
 
     # ------------------------------------------------------------- 5
     model_cfg, train_cfg = default_celeba64(sup=0.5, n_epochs=2,
@@ -417,9 +409,16 @@ def main():
         'no_flip': ((BATCH, PS, PS, 3), S, 'no_flip', 0),
         'dy=dx=0': ((BATCH, PS, PS, 3), S, 'origin', 0),
         f'dy=dx={2 * P}': ((BATCH, PS, PS, 3), S, 'far', 0),
+        f'dy=dx={2 * P}_unaligned': ((BATCH, PS, PS, 3), S, 'far', 5),
         '128px': ((2, 136, 136, 3), 128, 'drawn', 0),
+        '128px_one_channel': ((2, 136, 136, 1), 128, 'drawn', 0),
+        '128px_one_channel_far_unaligned': ((2, 136, 136, 1), 128, 'far',
+                                            7),
         'one_channel': ((4, 20, 20, 1), 16, 'drawn', 0),
+        'five_channels': ((3, 12, 11, 5), 8, 'drawn', 2),
         'odd_b_unaligned_scalar': ((5, 21, 19, 3), 15, 'drawn', 1),
+        'last_far_unaligned_scalar': ((3, 21, 19, 3), 15, 'far', 3),
+        'rows_over_48k': ((2, 20, 20000, 3), 16, 'drawn', 0),
         'stacked': ((4, BATCH, PS, PS, 3), S, 'drawn', 0),
     }
     aug_max_err = 0.0
@@ -458,11 +457,6 @@ def main():
                  *(v.view(lead) for v in preprocess.draw_crop_flip(
                      gen, B, PS, PS, S))) for _ in range(count)]
 
-    def aug_bound_ms(images):
-        # each cropped byte read once, each float written once, 12 B of
-        # offsets per image
-        return (images * (S * S * 3 * (1 + 4) + 12)) / rate * 1e3
-
     step_in = cycler(aug_inputs((BATCH,), 16))
     stack_in = cycler(aug_inputs((4, BATCH), 4))
     launches0 = preprocess.augment_launches
@@ -494,8 +488,8 @@ def main():
         u8, b, r, c = idx_in()
         return u8[b, r, c].float() * scale_t
     comp_ms, _ = cuda_ms(composed, 100)
-    step_bound = aug_bound_ms(BATCH)
-    stk_bound = aug_bound_ms(4 * BATCH)
+    step_bound = augment_bound_ms(BATCH, S, 3, rate)
+    stk_bound = augment_bound_ms(4 * BATCH, S, 3, rate)
     phase(8, f'timed augment at ({BATCH}, {PS}, {PS}, 3) -> {S} and '
              f'stacked (4, {BATCH}, ...): device ms per call (host ms per '
              f'call)')
@@ -625,6 +619,10 @@ def main():
         'bound_ms': stk_bound,
         'bound_by': 'bytes',
         'library_ms': None,             # no single torch call computes it
+        # the per-step form (steps_per_dispatch 1, the default)
+        'per_step_ms': aug_ms,
+        'per_step_plain_ms': aug_plain_ms,
+        'per_step_bound_ms': step_bound,
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

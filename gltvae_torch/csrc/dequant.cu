@@ -7,14 +7,32 @@
 // Bound: pure memory traffic. Each input byte is read once and each output
 // float written once: 5 bytes per element, 15,728,640 B for a bs-256
 // 64x64x3 batch, about 4.7 us at the H100 SXM's 3.35 TB/s. There is no
-// reuse and no arithmetic worth counting, so the design is a plain
-// vectorised stream: each thread loads 16 bytes as one uint4 and writes
-// four float4 (16-byte accesses, neighbouring threads on neighbouring
-// addresses), in a grid-stride loop. Elements before the first 16-byte
-// aligned source address, and the numel % 16 tail, are handled by scalar
-// code in the same kernel. When the source and destination cannot both be
-// 16-byte aligned at the same element, the vector loop keeps its uint4
-// loads and stores floats one by one.
+// reuse and no arithmetic worth counting, so the kernel must keep the read
+// and the write streams both busy and both coalesced.
+//
+// Design: a persistent grid, sized from the SM count (six blocks of 256
+// threads and 16 KB of shared memory per SM: one full wave), walks 4 KB
+// tiles of the source, block g taking tiles g, g + G, g + 2G, ... Thread 0
+// keeps a ring of kStages tiles in flight in shared memory with 1-D TMA
+// bulk copies, one mbarrier per stage, so the loads of the next tiles
+// overlap the conversion and stores of the current one. From a tile in
+// shared memory, thread t converts source words t, t + 256, ... and stores
+// each as one float4: a warp's store covers 512 contiguous bytes, every
+// 32-byte sector written whole by one instruction. Bulk copies need
+// 16-byte aligned addresses and sizes, so the tiles start at the first
+// 16-byte aligned source byte; the bytes before it (the head) and after
+// the last whole tile (the tail) go through a scalar path in the same
+// launch. When dst + head is not 16-byte aligned, the stores are scalar.
+// The wrapper (ops/preprocess.py::dequant_plan) computes head, tiles,
+// tail and grid on the host.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 4,
+// python -m gltvae_torch.time_kernels): 6.8-7.1 us at (256, 64, 64, 3),
+// 66-69% of the bound. At that shape the 768 tiles fill one wave, one tile
+// a block, which timed faster than grids of 2-4 blocks per SM that take
+// up to 3 tiles a block through the ring.
+// zero_() of the float32 output alone takes 4.9-5.1 us: what is left is
+// the 3.1 MB of reads and one wave's launch, ramp and tail.
 //
 // Two forms, both correctly rounded, so the kernel equals its plain torch
 // version bit for bit:
@@ -26,10 +44,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;
+constexpr int kTile = 4096;       // source bytes per tile (ops/preprocess.py)
+constexpr int kStages = 4;
 
 template <bool kDiv>
 __device__ __forceinline__ float convert(uint32_t v, float scale) {
@@ -38,76 +59,89 @@ __device__ __forceinline__ float convert(uint32_t v, float scale) {
 }
 
 template <bool kDiv>
-__device__ __forceinline__ void convert_word(uint32_t w, float scale,
-                                             float out[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[j] = convert<kDiv>((w >> (8 * j)) & 0xFFu, scale);
-}
-
-// src + head is 16-byte aligned; n_vec 16-byte vectors follow it, then
-// `tail` elements. dst_vec says whether dst + head is 16-byte aligned too.
-template <bool kDiv>
 __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const uint8_t* __restrict__ src, float* __restrict__ dst,
-               int64_t head, int64_t n_vec, int64_t tail, float scale,
+               int64_t head, int64_t tiles, int64_t tail, float scale,
                bool dst_vec) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  __shared__ __align__(128) uint8_t ring[kStages][kTile];
+  __shared__ __align__(8) uint64_t full[kStages];
 
-  const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
-  float* vdst = dst + head;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    const uint4 q = vsrc[i];
-    float f[16];
-    convert_word<kDiv>(q.x, scale, f);
-    convert_word<kDiv>(q.y, scale, f + 4);
-    convert_word<kDiv>(q.z, scale, f + 8);
-    convert_word<kDiv>(q.w, scale, f + 12);
-    float* o = vdst + 16 * i;
-    if (dst_vec) {
-      float4* o4 = reinterpret_cast<float4*>(o);
-      o4[0] = make_float4(f[0], f[1], f[2], f[3]);
-      o4[1] = make_float4(f[4], f[5], f[6], f[7]);
-      o4[2] = make_float4(f[8], f[9], f[10], f[11]);
-      o4[3] = make_float4(f[12], f[13], f[14], f[15]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) o[j] = f[j];
-    }
+  const int64_t G = gridDim.x;
+  const int64_t g = blockIdx.x;
+  const int64_t mine = g < tiles ? (tiles - g + G - 1) / G : 0;
+  const uint8_t* body = src + head;
+  float* out = dst + head;
+
+  if (threadIdx.x == 0 && mine > 0) {
+    for (int s = 0; s < kStages; ++s) gltvae::mbar_init(&full[s]);
+    for (int s = 0; s < kStages && s < mine; ++s)
+      gltvae::bulk_load(ring[s], body + (g + s * G) * kTile, kTile, &full[s]);
   }
+  __syncthreads();
 
-  // Scalar edges: the unaligned head, then the tail after the vectors.
-  const int64_t tail_start = head + 16 * n_vec;
-  for (int64_t i = tid; i < head + tail; i += stride) {
+  // Scalar edges while the first tiles load: the unaligned head, then the
+  // tail after the whole tiles.
+  const int64_t stride = G * kThreads;
+  const int64_t tail_start = head + tiles * kTile;
+  for (int64_t i = g * kThreads + threadIdx.x; i < head + tail; i += stride) {
     const int64_t e = i < head ? i : tail_start + (i - head);
     dst[e] = convert<kDiv>(src[e], scale);
+  }
+
+  for (int64_t i = 0; i < mine; ++i) {
+    const int s = static_cast<int>(i % kStages);
+    gltvae::mbar_wait(&full[s], static_cast<uint32_t>(i / kStages) & 1u);
+    const int64_t k = g + i * G;
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(ring[s]);
+    float* o = out + k * kTile;
+#pragma unroll
+    for (int j = 0; j < kTile / 4 / kThreads; ++j) {
+      const int w = threadIdx.x + j * kThreads;
+      const uint32_t q = words[w];
+      const float4 f = make_float4(convert<kDiv>(q & 0xFFu, scale),
+                                   convert<kDiv>((q >> 8) & 0xFFu, scale),
+                                   convert<kDiv>((q >> 16) & 0xFFu, scale),
+                                   convert<kDiv>(q >> 24, scale));
+      if (dst_vec) {
+        reinterpret_cast<float4*>(o)[w] = f;
+      } else {
+        o[4 * w] = f.x;
+        o[4 * w + 1] = f.y;
+        o[4 * w + 2] = f.z;
+        o[4 * w + 3] = f.w;
+      }
+    }
+    __syncthreads();   // every thread is done reading stage s: refill it
+    if (threadIdx.x == 0 && i + kStages < mine)
+      gltvae::bulk_load(ring[s], body + (k + kStages * G) * kTile, kTile,
+                        &full[s]);
   }
 }
 
 }  // namespace
 
-extern "C" int gltvae_dequant_u8_f32(const void* src, void* dst, int64_t n,
-                                     int mode, float scale, void* stream) {
-  if (n <= 0) return 0;
+// src: n = head + tiles * tile + tail uint8; dst: n float32. src + head is
+// 16-byte aligned and tile is kTile (ops/preprocess.py::dequant_plan).
+extern "C" int gltvae_dequant_u8_f32(const void* src, void* dst, int64_t head,
+                                     int64_t tiles, int64_t tail, int tile,
+                                     int grid, int dst_vec, int mode,
+                                     float scale, void* stream) {
+  if (head < 0 || head > 15 || tiles < 0 || tail < 0 || tail >= kTile
+      || grid < 1 || tile != kTile
+      || (tiles > 0 && ((reinterpret_cast<uintptr_t>(src) + head) & 15)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (head + tiles + tail == 0) return 0;
   const uint8_t* s = static_cast<const uint8_t*>(src);
   float* d = static_cast<float*>(dst);
-  int64_t head = static_cast<int64_t>((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15);
-  if (head > n) head = n;
-  const int64_t n_vec = (n - head) / 16;
-  const int64_t tail = n - head - 16 * n_vec;
-  const bool dst_vec = ((reinterpret_cast<uintptr_t>(d + head)) & 15) == 0;
-
-  const int64_t work = n_vec > head + tail ? n_vec : head + tail;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(grid);
   if (mode == 0) {
-    dequant_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        s, d, head, n_vec, tail, scale, dst_vec);
+    dequant_kernel<true><<<blocks, kThreads, 0, st>>>(s, d, head, tiles, tail,
+                                                      scale, dst_vec != 0);
   } else {
-    dequant_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        s, d, head, n_vec, tail, scale, dst_vec);
+    dequant_kernel<false><<<blocks, kThreads, 0, st>>>(s, d, head, tiles,
+                                                       tail, scale,
+                                                       dst_vec != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

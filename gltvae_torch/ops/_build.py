@@ -2,11 +2,12 @@
 plain C interface, loaded with ctypes).
 
 Each ``csrc/<name>.cu`` becomes ``build/gltvae_torch/lib<name>-<hash>.so``
-at the repository root, where ``<hash>`` covers the source and the compiler
-flags, so a stale library is never loaded. Nothing is built at import: a
-library is compiled at its first use, or by ``build_all``, which starts one
-nvcc per source at once. ptxas's register/spill report for each build is
-kept beside it as ``lib<name>-<hash>.log``.
+at the repository root, where ``<hash>`` covers the source, the shared
+headers (``csrc/*.cuh``) and the compiler flags, so a stale library is
+never loaded. Nothing is built at import: a library is compiled at its
+first use, or by ``build_all``, which starts one nvcc per source at once.
+ptxas's register/spill report for each build is kept beside it as
+``lib<name>-<hash>.log``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b''.join(p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
+    digest = hashlib.sha256(src + headers
+                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f'lib{name}-{digest[:16]}.so'
 
 
