@@ -9,7 +9,7 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    and print ptxas's registers, shared memory and spills per kernel;
 3. the dequant kernel against its plain torch version on the card and on
    the CPU, bit for bit, at the main path's shape, ragged sizes, sizes
-   around whole TMA tiles (k*tile +- 1, one tile less one) and every
+   around whole 4 KB tiles (k*tile +- 1, one tile less one) and every
    unaligned base pointer (offsets 1..15);
 4. dequant timing with CUDA events beside its bound, the plain version and
    one PyTorch call computing the same function (and, for information,
@@ -221,20 +221,14 @@ def main():
         'all_bytes': torch.arange(256, dtype=torch.uint8,
                                   device=dev).view(1, 16, 16, 1),
     }
-    for k in (1, 3):                    # whole TMA tiles, one byte more or less
+    for k in (1, 3):                    # whole tiles, one byte more or less
         cases[f'{k}tile-1'] = buf[:k * tile - 1]
         cases[f'{k}tile+1'] = buf[:k * tile + 1]
     for off in range(1, 16):            # every unaligned base: head + tiles
         cases[f'off{off}'] = buf[off:off + 2 * tile + 1]
     cases['off5_3tile-1'] = buf[5:5 + 3 * tile - 1]
-    # six tiles a block: each stage of the TMA ring refilled at least once
-    grid = (preprocess.DEQUANT_BLOCKS_PER_SM
-            * torch.cuda.get_device_properties(dev).multi_processor_count)
-    cases['ring_wraps_off3'] = torch.randint(
-        0, 256, (6 * grid * tile + 4100,), dtype=torch.uint8, device=dev,
-        generator=gen)[3:]
     check(all(u8.data_ptr() % 16 != 0 for label, u8 in cases.items()
-              if label.startswith(('unaligned', 'off', 'ring'))),
+              if label.startswith(('unaligned', 'off'))),
           'unaligned case aligned')
     max_err = 0.0
     for label, u8 in cases.items():
@@ -256,8 +250,8 @@ def main():
              f'(max_abs_err {max_err}); u8.float()/255.0 on the card '
              f'differs from the divide form on {lib_vs_div} byte values '
              f'and from the multiply form on {lib_vs_mul}')
-    # the ring case's 19 MB input and 78 MB outputs must not count in the
-    # main path's peak memory (phase 5)
+    # phase 3's tensors must not count in the main path's peak memory
+    # (phase 5)
     del cases, u8, got, want
 
     # ------------------------------------------------------------- 4

@@ -23,8 +23,8 @@
 // 0 copies them into shared memory with one 1-D TMA bulk copy of their
 // 16-byte rounded window, clamped inside the tensor; the few bytes that
 // window leaves out at an unaligned tensor start or end are loaded one by
-// one (ops/preprocess.py::augment_span states the rule, and the tests
-// sweep it). Then each thread makes four consecutive output elements
+// one (tests/test_torch_kernel_plan.py mirrors the rule on the host and
+// sweeps it). Then each thread makes four consecutive output elements
 // (j, c) from shared memory, source column x0 + (flip ? S-1-j : j), and
 // stores them as one float4, so a warp stores 512 contiguous bytes; the
 // block's output rows are one contiguous range. C is a template parameter
@@ -36,9 +36,11 @@
 // of shared memory, two blocks an image) and the shared-memory size.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 8,
-// python -m gltvae_torch.time_kernels): per step (256, 72, 72, 3) -> 64
-// 7.3-7.4 us, 63-65% of the bound; stacked (4, 256, ...) 26.1-26.4 us,
-// 71-72%.
+// and in turns with other designs; PERF.md, section 6): per step (256, 72,
+// 72, 3) -> 64 7.2-7.4 us, 63-65% of the bound; stacked (4, 256, ...)
+// 26.1-26.4 us, 71-72%. The same window loaded by 16-byte loads of all
+// threads, in place of the one bulk copy, was 7% slower per step (the
+// default path) and 2% faster stacked.
 //
 // Offsets are clamped to [0, H-S] and [0, W-S], as XLA's dynamic_slice
 // clamps in gltvae's augment_xla, so no offset reads outside its image.
@@ -150,12 +152,10 @@ cudaError_t launch(dim3 grid, int smem, cudaStream_t st, const uint8_t* src,
                    const int32_t* flip, float* out, int H, int W, int C,
                    int S, int rows_per_group, float scale) {
   auto* kernel = augment_kernel<kC, kWidth>;
-  static int smem_allowed = 48 * 1024;  // above this, opt in once
-  if (smem > smem_allowed) {
+  if (smem > 48 * 1024) {   // opt in, on the current device, each launch
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_allowed = smem;
   }
   kernel<<<grid, kThreads, smem, st>>>(src, src_bytes, dy, dx, flip, out, H,
                                        W, C, S, rows_per_group, scale);

@@ -10,30 +10,27 @@
 // reuse and no arithmetic worth counting, so the kernel must keep the read
 // and the write streams both busy and both coalesced.
 //
-// Design: a persistent grid, sized from the SM count (six blocks of 256
-// threads and 16 KB of shared memory per SM: one full wave), walks 4 KB
-// tiles of the source, block g taking tiles g, g + G, g + 2G, ... Thread 0
-// keeps a ring of kStages tiles in flight in shared memory with 1-D TMA
-// bulk copies, one mbarrier per stage, so the loads of the next tiles
-// overlap the conversion and stores of the current one. From a tile in
-// shared memory, thread t converts source words t, t + 256, ... and stores
-// each as one float4: a warp's store covers 512 contiguous bytes, every
-// 32-byte sector written whole by one instruction. Bulk copies need
-// 16-byte aligned addresses and sizes, so the tiles start at the first
-// 16-byte aligned source byte; the bytes before it (the head) and after
-// the last whole tile (the tail) go through a scalar path in the same
-// launch. When dst + head is not 16-byte aligned, the stores are scalar.
-// The wrapper (ops/preprocess.py::dequant_plan) computes head, tiles,
-// tail and grid on the host.
+// Design: one block of 256 threads per 4 KB tile of the source (768
+// tiles, one wave, at (256, 64, 64, 3)). Thread t loads source words t,
+// t + 256, t + 512, t + 768 of its tile, all four before its first store
+// (a warp's load is 128 contiguous bytes), and stores each word's four
+// floats as one float4: a warp's store covers 512 contiguous bytes, every
+// 32-byte sector written whole by one instruction. The tiles start at
+// the first 16-byte aligned source byte, so every word load is aligned;
+// the bytes before it (the head) and after the last whole tile (the tail)
+// go through a scalar path in the same launch. When dst + head is not
+// 16-byte aligned, the stores are scalar. The wrapper
+// (ops/preprocess.py::dequant_plan) computes head, tiles, tail and grid on
+// the host.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 4,
-// python -m gltvae_torch.time_kernels): 6.8-7.1 us at (256, 64, 64, 3),
-// 66-69% of the bound. At that shape the 768 tiles fill one wave, one tile
-// a block, which timed faster than grids of 2-4 blocks per SM that take
-// up to 3 tiles a block through the ring.
-// zero_() of the float32 output alone takes 4.9-5.1 us: what is left is
-// the 3.1 MB of reads and one wave's launch, ramp and tail.
-//
+// Shared memory earns nothing here. Timed in turns in one process on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): this design
+// 6.33-6.70 us at (256, 64, 64, 3), 70-74% of the bound; the same blocks
+// fed by one 1-D TMA bulk copy into shared memory 6.73-6.89 us; a
+// persistent grid with a 4-stage TMA ring 6.92-7.06 us; the earlier
+// design 13.1-13.4 us. At four times the bytes the three new designs were
+// within 1% of one another.
+
 // Two forms, both correctly rounded, so the kernel equals its plain torch
 // version bit for bit:
 //   mode 0 (divide):   v / 255.0f   (IEEE division: never build with
@@ -44,13 +41,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tma.cuh"
-
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 4096;       // source bytes per tile (ops/preprocess.py)
-constexpr int kStages = 4;
 
 template <bool kDiv>
 __device__ __forceinline__ float convert(uint32_t v, float scale) {
@@ -63,71 +57,57 @@ __global__ void __launch_bounds__(kThreads)
 dequant_kernel(const uint8_t* __restrict__ src, float* __restrict__ dst,
                int64_t head, int64_t tiles, int64_t tail, float scale,
                bool dst_vec) {
-  __shared__ __align__(128) uint8_t ring[kStages][kTile];
-  __shared__ __align__(8) uint64_t full[kStages];
-
-  const int64_t G = gridDim.x;
+  constexpr int kWords = kTile / 4 / kThreads;
   const int64_t g = blockIdx.x;
-  const int64_t mine = g < tiles ? (tiles - g + G - 1) / G : 0;
-  const uint8_t* body = src + head;
-  float* out = dst + head;
-
-  if (threadIdx.x == 0 && mine > 0) {
-    for (int s = 0; s < kStages; ++s) gltvae::mbar_init(&full[s]);
-    for (int s = 0; s < kStages && s < mine; ++s)
-      gltvae::bulk_load(ring[s], body + (g + s * G) * kTile, kTile, &full[s]);
+  uint32_t q[kWords];
+  if (g < tiles) {
+    const uint32_t* words =
+        reinterpret_cast<const uint32_t*>(src + head + g * kTile);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j)
+      q[j] = __ldg(words + threadIdx.x + j * kThreads);
   }
-  __syncthreads();
 
-  // Scalar edges while the first tiles load: the unaligned head, then the
-  // tail after the whole tiles.
-  const int64_t stride = G * kThreads;
+  // Scalar edges while the words load: the unaligned head, then the tail
+  // after the whole tiles.
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tail_start = head + tiles * kTile;
   for (int64_t i = g * kThreads + threadIdx.x; i < head + tail; i += stride) {
     const int64_t e = i < head ? i : tail_start + (i - head);
     dst[e] = convert<kDiv>(src[e], scale);
   }
+  if (g >= tiles) return;
 
-  for (int64_t i = 0; i < mine; ++i) {
-    const int s = static_cast<int>(i % kStages);
-    gltvae::mbar_wait(&full[s], static_cast<uint32_t>(i / kStages) & 1u);
-    const int64_t k = g + i * G;
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(ring[s]);
-    float* o = out + k * kTile;
+  float* o = dst + head + g * kTile;
 #pragma unroll
-    for (int j = 0; j < kTile / 4 / kThreads; ++j) {
-      const int w = threadIdx.x + j * kThreads;
-      const uint32_t q = words[w];
-      const float4 f = make_float4(convert<kDiv>(q & 0xFFu, scale),
-                                   convert<kDiv>((q >> 8) & 0xFFu, scale),
-                                   convert<kDiv>((q >> 16) & 0xFFu, scale),
-                                   convert<kDiv>(q >> 24, scale));
-      if (dst_vec) {
-        reinterpret_cast<float4*>(o)[w] = f;
-      } else {
-        o[4 * w] = f.x;
-        o[4 * w + 1] = f.y;
-        o[4 * w + 2] = f.z;
-        o[4 * w + 3] = f.w;
-      }
+  for (int j = 0; j < kWords; ++j) {
+    const int w = threadIdx.x + j * kThreads;
+    const float4 f = make_float4(convert<kDiv>(q[j] & 0xFFu, scale),
+                                 convert<kDiv>((q[j] >> 8) & 0xFFu, scale),
+                                 convert<kDiv>((q[j] >> 16) & 0xFFu, scale),
+                                 convert<kDiv>(q[j] >> 24, scale));
+    if (dst_vec) {
+      reinterpret_cast<float4*>(o)[w] = f;
+    } else {
+      o[4 * w] = f.x;
+      o[4 * w + 1] = f.y;
+      o[4 * w + 2] = f.z;
+      o[4 * w + 3] = f.w;
     }
-    __syncthreads();   // every thread is done reading stage s: refill it
-    if (threadIdx.x == 0 && i + kStages < mine)
-      gltvae::bulk_load(ring[s], body + (k + kStages * G) * kTile, kTile,
-                        &full[s]);
   }
 }
 
 }  // namespace
 
 // src: n = head + tiles * tile + tail uint8; dst: n float32. src + head is
-// 16-byte aligned and tile is kTile (ops/preprocess.py::dequant_plan).
+// 16-byte aligned, tile is kTile and grid at least tiles: block g < tiles
+// converts tile g (ops/preprocess.py::dequant_plan).
 extern "C" int gltvae_dequant_u8_f32(const void* src, void* dst, int64_t head,
                                      int64_t tiles, int64_t tail, int tile,
                                      int grid, int dst_vec, int mode,
                                      float scale, void* stream) {
   if (head < 0 || head > 15 || tiles < 0 || tail < 0 || tail >= kTile
-      || grid < 1 || tile != kTile
+      || grid < 1 || grid < tiles || tile != kTile
       || (tiles > 0 && ((reinterpret_cast<uintptr_t>(src) + head) & 15)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (head + tiles + tail == 0) return 0;

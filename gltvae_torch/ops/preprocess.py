@@ -25,19 +25,16 @@ designs. Each equals its plain version (``dequant_reference``,
 raises; a CPU tensor takes the plain version.
 
 What needs no card is planned here, on the host, and handed to the C
-entry points: ``dequant_plan`` (the unaligned head, the whole TMA tiles,
-the tail, the persistent grid) and ``augment_plan`` (rows per block,
-shared memory). ``augment_span`` states the rule each augment block
-follows on the card to load its source rows without reading outside the
-tensor. tests/test_torch_kernel_plan.py sweeps all three.
+entry points: ``dequant_plan`` (the unaligned head, the whole 4 KB
+tiles, the tail, the grid) and ``augment_plan`` (rows per block, shared
+memory). tests/test_torch_kernel_plan.py sweeps both.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -53,14 +50,8 @@ _MODES = {'div': 0, 'mul': 1}
 
 #: Threads per block of both kernels (``kThreads`` in the sources).
 THREADS = 256
-#: Source bytes per TMA tile of the dequant kernel (``kTile``).
+#: Source bytes per tile (one block each) of the dequant kernel (``kTile``).
 DEQUANT_TILE = 4096
-#: Dequant blocks per SM in the persistent grid: six of 256 threads and
-#: 16 KB of shared memory fill an SM in one wave.
-DEQUANT_BLOCKS_PER_SM = 6
-#: Output rows per augment block, fewer where their source rows would not
-#: fit the default 48 KB of shared memory.
-AUGMENT_ROWS = 32
 #: Most dynamic shared memory an augment block may take (``kMaxSmem``).
 AUGMENT_MAX_SMEM = 232448 - 64
 _SMEM_DEFAULT = 48 * 1024
@@ -98,11 +89,6 @@ def _launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -111,24 +97,21 @@ def _cdiv(a: int, b: int) -> int:
 
 class DequantPlan(NamedTuple):
     head: int       # scalar bytes before the first 16-byte aligned one
-    tiles: int      # whole DEQUANT_TILE tiles from there, by bulk copy
+    tiles: int      # whole DEQUANT_TILE tiles from there, by word loads
     tail: int       # scalar bytes after the last whole tile
-    grid: int       # persistent blocks; block g takes tiles g, g + grid, ...
+    grid: int       # blocks; block g < tiles converts tile g
     dst_vec: bool   # float4 stores: dst + head is 16-byte aligned
 
 
-def dequant_plan(src_addr: int, dst_addr: int, n: int, sm_count: int,
-                 blocks_per_sm: int = DEQUANT_BLOCKS_PER_SM) -> DequantPlan:
-    """How the dequant kernel covers n source bytes at src_addr: bulk
-    copies need 16-byte aligned addresses and sizes, so the tiles start at
-    the first aligned byte and the bytes around them go scalar. The grid
-    fills the SMs (blocks_per_sm each), or fewer where there is less
-    work."""
+def dequant_plan(src_addr: int, dst_addr: int, n: int) -> DequantPlan:
+    """How the dequant kernel covers n source bytes at src_addr: the tiles
+    start at the first 16-byte aligned byte, so their word loads are
+    aligned, and the bytes around them go scalar. One block per tile, and
+    at least enough blocks for one thread per scalar byte."""
     head = min(-src_addr % 16, n)
     tiles = (n - head) // DEQUANT_TILE
     tail = n - head - tiles * DEQUANT_TILE
-    work = max(tiles, _cdiv(head + tail, THREADS))
-    grid = max(1, min(sm_count * blocks_per_sm, work))
+    grid = max(1, tiles, _cdiv(head + tail, THREADS))
     return DequantPlan(head, tiles, tail, grid,
                        (dst_addr + 4 * head) % 16 == 0)
 
@@ -154,6 +137,7 @@ def dequant(u8: torch.Tensor, mode: str = 'div',
             scale: float = 1.0 / 255.0) -> torch.Tensor:
     """uint8 -> float32 of the same shape: ``v / 255`` (mode='div') or
     ``v * scale`` (mode='mul'). CUDA tensors go through the kernel."""
+    global launches
     if mode not in _MODES:
         raise ValueError(f"mode must be 'div' or 'mul', got {mode!r}")
     if u8.dtype != torch.uint8:
@@ -167,21 +151,12 @@ def dequant(u8: torch.Tensor, mode: str = 'div',
     out = torch.empty(u8.shape, dtype=torch.float32, device=u8.device)
     if u8.numel() == 0:
         return out
-    plan = dequant_plan(u8.data_ptr(), out.data_ptr(), u8.numel(),
-                        _sm_count(u8.device.index))
-    _dequant_into(out, u8, mode, scale, plan)
-    return out
-
-
-def _dequant_into(out: torch.Tensor, u8: torch.Tensor, mode: str,
-                  scale: float, plan: DequantPlan) -> None:
-    """Launch the kernel on checked CUDA tensors with this plan (the
-    wrapper's, or another in gltvae_torch.time_kernels --sweep)."""
-    global launches
+    plan = dequant_plan(u8.data_ptr(), out.data_ptr(), u8.numel())
     _launch('dequant', u8.device, u8.data_ptr(), out.data_ptr(), plan.head,
             plan.tiles, plan.tail, DEQUANT_TILE, plan.grid,
             int(plan.dst_vec), _MODES[mode], scale)
     launches += 1
+    return out
 
 
 # ------------------------------ augment ------------------------------
@@ -198,37 +173,19 @@ class AugmentPlan(NamedTuple):
     vec: bool       # float4 stores: S*C % 4 == 0 and out 16-byte aligned
 
 
-def augment_plan(W: int, C: int, S: int, out_addr: int,
-                 rows: int = AUGMENT_ROWS) -> AugmentPlan:
-    """Rows per augment block (at most `rows`), and the shared memory for
+def augment_plan(W: int, C: int, S: int, out_addr: int) -> AugmentPlan:
+    """Rows per augment block (32, fewer where their source rows would not
+    fit the default 48 KB of shared memory), and the shared memory for
     their source rows (rows * W * C bytes, plus 30 at most of 16-byte
     rounding)."""
     row_bytes = W * C
-    rows = max(1, min(rows, S, (_SMEM_DEFAULT - 32) // row_bytes))
+    rows = max(1, min(32, S, (_SMEM_DEFAULT - 32) // row_bytes))
     smem = _cdiv(rows * row_bytes + 32, 16) * 16
     if smem > AUGMENT_MAX_SMEM:
         raise ValueError(f'augment: an image row of {row_bytes} bytes does '
                          f'not fit one block\'s shared memory')
     return AugmentPlan(rows, _cdiv(S, rows), smem,
                        (S * C) % 4 == 0 and out_addr % 16 == 0)
-
-
-def augment_span(base: int, nbytes: int, lo: int, hi: int
-                 ) -> Tuple[int, Optional[Tuple[int, int]],
-                            List[Tuple[int, int]]]:
-    """How an augment block loads its source rows, bytes [lo, hi) of the
-    tensor at [base, base + nbytes), as csrc/augment.cu does on the card.
-
-    Returns (a0, window, scalar): shared memory byte i holds address
-    a0 + i; window = (a, z) is the one bulk copy, the span's 16-byte
-    rounded window clamped inside the tensor (None when that is empty);
-    scalar lists the byte ranges loaded one by one."""
-    a0 = lo & ~15
-    a = max(a0, (base + 15) & ~15)
-    z = min((hi + 15) & ~15, (base + nbytes) & ~15)
-    if a >= z:
-        return a0, None, [(lo, hi)]
-    return a0, (a, z), [(lo, max(a, lo)), (min(z, hi), hi)]
 
 
 def augment_reference(u8: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
@@ -257,6 +214,7 @@ def _augment(u8: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
     version (CPU). Offsets are not range-checked here: that would wait for
     the device. Out-of-range offsets are outside every caller's contract;
     kernel and plain version clamp them alike."""
+    global augment_launches
     if u8.dtype != torch.uint8:
         raise TypeError(f'augment expects uint8 images, got {u8.dtype}')
     if u8.dim() != ndim:
@@ -284,22 +242,12 @@ def _augment(u8: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,
                       device=u8.device)
     if out.numel() == 0:
         return out
-    _augment_into(out, u8, dy, dx, fl, scale,
-                  augment_plan(W, C, S, out.data_ptr()))
-    return out
-
-
-def _augment_into(out: torch.Tensor, u8: torch.Tensor, dy: torch.Tensor,
-                  dx: torch.Tensor, fl: torch.Tensor, scale: float,
-                  plan: AugmentPlan) -> None:
-    """Launch the kernel on checked CUDA tensors with this plan (the
-    wrapper's, or another in gltvae_torch.time_kernels --sweep)."""
-    global augment_launches
-    *lead, H, W, C = u8.shape
+    plan = augment_plan(W, C, S, out.data_ptr())
     _launch('augment', u8.device, u8.data_ptr(), u8.numel(), dy.data_ptr(),
             dx.data_ptr(), fl.data_ptr(), out.data_ptr(), math.prod(lead), H,
-            W, C, out.shape[-2], plan.rows, plan.smem, int(plan.vec), scale)
+            W, C, S, plan.rows, plan.smem, int(plan.vec), scale)
     augment_launches += 1
+    return out
 
 
 def fused_augment_given(u8: torch.Tensor, dy: torch.Tensor, dx: torch.Tensor,

@@ -1,49 +1,22 @@
-"""Device time of the port's CUDA kernels at the main path's shapes, on one
-GPU, beside their byte bounds.
+"""Helpers to time the port's CUDA kernels on one GPU and to state their
+byte bounds (chip_smoke.py phases 4 and 8 use them).
 
-    python -m gltvae_torch.time_kernels [--against DIR] [--sweep]
-        [--out build/time_kernels.json]
-
-Each time is device ms per call, taken with CUDA events while a sleep
-kernel holds the stream (``cuda_ms``, which chip_smoke.py phases 4 and 8
-use too), over 16 distinct inputs cycled so that L2 holds none:
-- dequant (divide form) at (256, 64, 64, 3), with ``u8.float()`` on the
-  same inputs (one call, the same bytes) as a yardstick;
-- augment at (256, 72, 72, 3) -> 64 (per step, the default path) and
-  (4, 256, 72, 72, 3) -> 64 (stacked, as steps_per_dispatch 4 runs it);
-- for each, ``zero_()`` of a float32 tensor of the output's size: the
-  output's writes alone, as PyTorch's fill kernel makes them.
-
-``--against DIR`` builds the kernels of an earlier revision, whose
-``gltvae_torch/csrc`` is unpacked in DIR (``git archive <rev>
-gltvae_torch/csrc | tar -x -C DIR``), and times them and this tree's in
-turns: old, new, new, old. Their C entry points must be those from before
-the host-side launch plans (dequant took the size and planned itself;
-augment took no plan). ``--sweep`` times this tree's kernels at other
-values of what the host plans choose: dequant blocks per SM and augment
-rows per block. Every timed function is first checked bit for bit
-against the plain version.
+``cuda_ms`` takes device ms per call with CUDA events while a sleep kernel
+holds the stream; ``cycler`` hands out distinct inputs in turn, so that
+L2 holds none between calls; the bounds count each input byte read once
+and each output float written once at the card's memory rate.
 """
 
 from __future__ import annotations
 
-import argparse
-import ctypes
-import json
-import math
-import os
-import subprocess
 import time
-from typing import Callable, Dict, List
+from typing import Callable, List
 
 import torch
 
 # Peak device-memory rate by card (NVIDIA data sheets), bytes/s.
 MEM_RATE = (('H100 PCIe', 2.0e12), ('H100 NVL', 3.9e12), ('H200', 4.8e12),
             ('H100', 3.35e12))
-
-SCALE = 1.0 / 255.0
-PAD, CROP = 4, 64
 
 
 def memory_rate(kind: str) -> float:
@@ -99,180 +72,3 @@ def augment_bound_ms(images: int, S: int, C: int, rate: float) -> float:
     """Each cropped byte read once, each float written once, 12 B of
     offsets per image."""
     return images * (S * S * C * (1 + 4) + 12) / rate * 1e3
-
-
-def _build_against(csrc: str) -> Dict[str, ctypes.CDLL]:
-    """An earlier revision's dequant.cu and augment.cu, built into
-    build/gltvae_torch/against/ (one nvcc each, at once)."""
-    from gltvae_torch.ops import _build
-    out_dir = _build.BUILD_DIR / 'against'
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in ('dequant', 'augment'):
-        lib = out_dir / f'lib{name}.so'
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', str(lib),
-             os.path.join(csrc, f'{name}.cu')],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {csrc}/{name}.cu:\n{log}')
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def _against(libs: Dict[str, ctypes.CDLL], dev: torch.device):
-    """Wrappers of the earlier revision's kernels: (dequant, augment)."""
-    P, I64, INT, F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_float)
-
-    def entry(name, argtypes):
-        f = getattr(libs[name], f'gltvae_{name}_u8_f32')
-        f.argtypes, f.restype = argtypes, ctypes.c_int
-        return f
-    dq = entry('dequant', (P, P, I64, INT, F32, P))
-    aug = entry('augment', (P, P, P, P, P, I64, INT, INT, INT, INT, F32, P))
-
-    def ok(err):
-        if err != 0:
-            raise RuntimeError(f'launch failed: CUDA error {err}')
-
-    def dequant(u8):
-        out = torch.empty(u8.shape, dtype=torch.float32, device=dev)
-        ok(dq(u8.data_ptr(), out.data_ptr(), u8.numel(), 0, SCALE,
-              torch.cuda.current_stream().cuda_stream))
-        return out
-
-    def augment(u8, dy, dx, fl):
-        *lead, H, W, C = u8.shape
-        out = torch.empty((*lead, CROP, CROP, C), dtype=torch.float32,
-                          device=dev)
-        ok(aug(u8.data_ptr(), dy.data_ptr(), dx.data_ptr(), fl.data_ptr(),
-               out.data_ptr(), math.prod(lead), H, W, C, CROP, SCALE,
-               torch.cuda.current_stream().cuda_stream))
-        return out
-    return dequant, augment
-
-
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument('--against', metavar='DIR',
-                   help="an earlier revision's gltvae_torch/csrc")
-    p.add_argument('--sweep', action='store_true')
-    p.add_argument('--out', default=os.path.join('build',
-                                                 'time_kernels.json'))
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit('time_kernels needs a CUDA device')
-    from gltvae_torch.ops import _build, preprocess
-
-    dev = torch.device('cuda', 0)
-    kind = torch.cuda.get_device_name(0)
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    rate = memory_rate(kind)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _build.build_all()
-    old = _against(_build_against(args.against), dev) if args.against \
-        else None
-    gen = torch.Generator(device=dev).manual_seed(0)
-    PS = CROP + 2 * PAD
-
-    dq_in = [torch.randint(0, 256, (256, 64, 64, 3), dtype=torch.uint8,
-                           device=dev, generator=gen) for _ in range(16)]
-
-    def aug_in(lead, count):
-        return [(torch.randint(0, 256, (*lead, PS, PS, 3), dtype=torch.uint8,
-                               device=dev, generator=gen),
-                 *(v.view(lead) for v in preprocess.draw_crop_flip(
-                     gen, math.prod(lead), PS, PS, CROP)))
-                for _ in range(count)]
-
-    # (label, inputs, reps, bound ms, plain version, {name: function})
-    n = dq_in[0].numel()
-    dq_fns = {'new': preprocess.dequant}
-    step_fns = {'new': lambda *a: preprocess.fused_augment_given(*a, CROP)}
-    stk_fns = {'new': lambda *a: preprocess.fused_augment_stacked_given(
-        *a, CROP)}
-    if old:
-        for fns, f in ((dq_fns, old[0]), (step_fns, old[1]),
-                       (stk_fns, old[1])):
-            fns['old'] = f
-    if args.sweep:
-        for bps in (2, 3, 4, 8):
-            def dq_bps(u8, bps=bps):
-                out = torch.empty(u8.shape, dtype=torch.float32, device=dev)
-                preprocess._dequant_into(out, u8, 'div', SCALE,
-                                         preprocess.dequant_plan(
-                                             u8.data_ptr(), out.data_ptr(),
-                                             u8.numel(), sms, bps))
-                return out
-            dq_fns[f'blocks_per_sm={bps}'] = dq_bps
-        for rows in (8, 16, 24, 64):
-            def aug_rows(u8, dy, dx, fl, rows=rows):
-                *lead, H, W, C = u8.shape
-                out = torch.empty((*lead, CROP, CROP, C), dtype=torch.float32,
-                                  device=dev)
-                preprocess._augment_into(out, u8, dy, dx, fl, SCALE,
-                                         preprocess.augment_plan(
-                                             W, C, CROP, out.data_ptr(),
-                                             rows))
-                return out
-            step_fns[f'rows={rows}'] = stk_fns[f'rows={rows}'] = aug_rows
-    cases = [
-        ('dequant', dq_in, 100, dequant_bound_ms(n, rate),
-         lambda u8: preprocess.dequant_reference(u8), dq_fns),
-        ('augment per step', aug_in((256,), 16), 100,
-         augment_bound_ms(256, CROP, 3, rate),
-         lambda *a: preprocess.augment_reference(*a, CROP), step_fns),
-        ('augment stacked', aug_in((4, 256), 4), 50,
-         augment_bound_ms(1024, CROP, 3, rate),
-         lambda *a: preprocess.augment_reference(*a, CROP), stk_fns),
-    ]
-    record = {'card': card, 'memory_rate': rate, 'kernels': {}}
-    print(f'card {card}; bounds at {rate / 1e12:.2f} TB/s', flush=True)
-    for label, inputs, reps, bound, plain, fns in cases:
-        first = inputs[0] if isinstance(inputs[0], tuple) else (inputs[0],)
-        want = plain(*first)
-        for name, f in fns.items():
-            if not torch.equal(f(*first), want):
-                raise RuntimeError(f'{label} {name}: not bit-equal to plain')
-        nxt = cycler(inputs)
-
-        def timed(f):
-            def call():
-                x = nxt()
-                return f(*x) if isinstance(x, tuple) else f(x)
-            return cuda_ms(call, reps)[0]
-        order = ['old', 'new', 'new', 'old'] if 'old' in fns else ['new',
-                                                                   'new']
-        turns = [(name, timed(fns[name])) for name in order]
-        others = [k for k in fns if k not in ('old', 'new')]
-        sweep = {k: [] for k in others}
-        for k in others + others[::-1]:
-            sweep[k].append(timed(fns[k]))
-        entry = {'bound_ms': bound, 'turns': turns, 'sweep': sweep}
-        if label == 'dequant':
-            entry['u8.float()_ms'] = timed(lambda u8: u8.float())
-        entry['zero_ output_ms'] = cuda_ms(torch.empty_like(want).zero_,
-                                           reps)[0]
-        record['kernels'][label] = entry
-        print(f'{label}: bound {bound:.5f} ms; turns ' + ', '.join(
-            f'{k} {v:.5f} ({bound / v:.1%})' for k, v in turns), flush=True)
-        for k, v in sweep.items():
-            print(f'  {k}: ' + ' '.join(f'{x:.5f}' for x in v)
-                  + f' ({bound / min(v):.1%} of bound)', flush=True)
-        for k in ('u8.float()_ms', 'zero_ output_ms'):
-            if k in entry:
-                print(f'  {k[:-3]}: {entry[k]:.5f} ms', flush=True)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, 'w') as f:
-        json.dump(record, f, indent=1)
-    print(f'card {card}; record {args.out}', flush=True)
-
-
-if __name__ == '__main__':
-    main()

@@ -3,10 +3,13 @@ the CPU: every element covered exactly once, and every 16-byte wide read
 inside the source tensor.
 
 The dequant kernel takes its plan as it is (head, tiles, tail, grid);
-each tile is one 1-D bulk copy. An augment block applies ``augment_span``
-to its source rows on the card; the emulation below repeats what
-csrc/augment.cu then does with shared memory, index for index, and must
-equal the plain version bit for bit.
+each tile is read as aligned 4-byte words. An augment block works out on
+the card which of its source bytes one bulk copy may load and which it
+loads one by one: ``augment_span`` below mirrors that rule of
+csrc/augment.cu, so a change to either must be made in both. The
+emulation below repeats what the kernel then does with shared memory,
+index for index, and must equal the plain version bit for bit. Only
+chip_smoke.py (phases 3 and 7) runs the kernels themselves.
 """
 
 import numpy as np
@@ -15,11 +18,9 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from gltvae_torch.ops.preprocess import (AUGMENT_MAX_SMEM,
-                                         DEQUANT_BLOCKS_PER_SM, DEQUANT_TILE,
+from gltvae_torch.ops.preprocess import (AUGMENT_MAX_SMEM, DEQUANT_TILE,
                                          THREADS, augment_plan,
-                                         augment_reference, augment_span,
-                                         dequant_plan)
+                                         augment_reference, dequant_plan)
 
 T = DEQUANT_TILE
 BASE = 1 << 20          # a 16-byte aligned stand-in for a device address
@@ -27,26 +28,22 @@ BASE = 1 << 20          # a 16-byte aligned stand-in for a device address
 
 # ------------------------------ dequant ------------------------------
 
-def _check_dequant_plan(off, n, sms=132):
+def _check_dequant_plan(off, n):
     src, dst = BASE + off, 2 * BASE
-    p = dequant_plan(src, dst, n, sms)
+    p = dequant_plan(src, dst, n)
     assert p.head + p.tiles * T + p.tail == n
     assert 0 <= p.head <= 15 and 0 <= p.tail < T
-    assert 1 <= p.grid <= sms * DEQUANT_BLOCKS_PER_SM
+    # one block per tile, and a thread for each scalar byte
+    assert p.grid == max(1, p.tiles, -(-(p.head + p.tail) // THREADS))
     assert p.dst_vec == (p.head % 4 == 0)
     covered = np.zeros(n, np.int8)
     covered[:p.head] += 1
     covered[p.head + p.tiles * T:] += 1
     if p.tiles:
         assert (src + p.head) % 16 == 0
-    # block g walks tiles g, g + G, ... (csrc/dequant.cu); each tile is one
-    # bulk copy of T bytes, 16-byte aligned and inside the source
-    owned = []
-    for g in range(p.grid):
-        mine = (p.tiles - g + p.grid - 1) // p.grid if g < p.tiles else 0
-        owned += [g + i * p.grid for i in range(mine)]
-    assert sorted(owned) == list(range(p.tiles))
-    for k in owned:
+    # block g < tiles converts tile g (csrc/dequant.cu): T bytes read as
+    # words, 16-byte aligned and inside the source
+    for k in range(min(p.grid, p.tiles)):
         lo = p.head + k * T
         assert (src + lo) % 16 == 0 and T % 16 == 0
         assert 0 <= lo and lo + T <= n
@@ -58,7 +55,7 @@ def _check_dequant_plan(off, n, sms=132):
 @pytest.mark.parametrize('n', [1, 15, 16, 17, T - 1, T, T + 1, 2 * T - 1,
                                2 * T, 2 * T + 1, 3 * T + 17, 5 * 33 * 17 * 3,
                                256 * 64 * 64 * 3,
-                               6 * 132 * DEQUANT_BLOCKS_PER_SM * T + 4097])
+                               4753 * T + 1])           # several waves
 def test_dequant_plan_covers_once_inside_the_source(n):
     for off in range(16):
         _check_dequant_plan(off, n)
@@ -66,8 +63,8 @@ def test_dequant_plan_covers_once_inside_the_source(n):
 
 def test_dequant_plan_at_the_main_shape_is_whole_tiles():
     p = _check_dequant_plan(0, 256 * 64 * 64 * 3)
-    assert (p.head, p.tiles, p.tail, p.dst_vec) == (0, 768, 0, True)
-    assert p.grid == min(132 * DEQUANT_BLOCKS_PER_SM, 768)
+    assert (p.head, p.tiles, p.tail, p.grid, p.dst_vec) == (0, 768, 0, 768,
+                                                            True)
 
 
 @pytest.mark.parametrize('off', [1, 7, 15])
@@ -78,13 +75,28 @@ def test_dequant_plan_head_only(off):
 
 
 @settings(max_examples=200, deadline=None)
-@given(off=st.integers(0, 15), n=st.integers(1, 9 * T + 40),
-       sms=st.integers(1, 200))
-def test_dequant_plan_sweep(off, n, sms):
-    _check_dequant_plan(off, n, sms)
+@given(off=st.integers(0, 15), n=st.integers(1, 9 * T + 40))
+def test_dequant_plan_sweep(off, n):
+    _check_dequant_plan(off, n)
 
 
 # ------------------------------ augment ------------------------------
+
+def augment_span(base, nbytes, lo, hi):
+    """How an augment block loads its source rows, bytes [lo, hi) of the
+    tensor at [base, base + nbytes): a mirror of csrc/augment.cu's rule.
+
+    Returns (a0, window, scalar): shared memory byte i holds address
+    a0 + i; window = (a, z) is the one bulk copy, the span's 16-byte
+    rounded window clamped inside the tensor (None when that is empty);
+    scalar lists the byte ranges loaded one by one."""
+    a0 = lo & ~15
+    a = max(a0, (base + 15) & ~15)
+    z = min((hi + 15) & ~15, (base + nbytes) & ~15)
+    if a >= z:
+        return a0, None, [(lo, hi)]
+    return a0, (a, z), [(lo, max(a, lo)), (min(z, hi), hi)]
+
 
 def _blocks(n_images, H, W, C, S, plan, y0s):
     """(image, y0, row0, rows, lo, hi) of each block, lo/hi relative to
@@ -230,8 +242,8 @@ def test_augment_emulation_bit_equal_to_plain(shape, how):
 # --------------------------- timing helpers ---------------------------
 
 def test_bounds_memory_rate_and_cycler():
-    """The byte bounds that chip_smoke.py and gltvae_torch.time_kernels
-    print, from the card's name."""
+    """The byte bounds that chip_smoke.py prints (from
+    gltvae_torch.time_kernels), from the card's name."""
     from gltvae_torch.time_kernels import (augment_bound_ms, cycler,
                                            dequant_bound_ms, memory_rate)
     assert memory_rate('NVIDIA H100 80GB HBM3') == 3.35e12
