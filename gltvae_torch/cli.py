@@ -2,7 +2,9 @@
 
     python -m gltvae_torch.cli --synthetic --do-train --epochs 2 --sup 0.5 \\
         -bs 256 --output-dir runs/torch [--device cuda|cpu] \\
-        [--augment-pad 4] [--steps-per-dispatch 4]
+        [--augment-pad 4] [--steps-per-dispatch 4] \\
+        [--image-size 128 --compute-dtype bfloat16 --input-s2d on \\
+         --output-s2d on --remat dots] [--resident-train off]
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Per supervision fraction
 it builds the configs, the loaders and the gating init, trains and/or tests
@@ -48,7 +50,23 @@ def parse_args(argv=None):
     p.add_argument('--synthetic-signal', action='store_true',
                    help='image-correlated synthetic labels (learnable)')
     p.add_argument('--compute-dtype', default='float32',
-                   choices=['float32', 'bfloat16'])
+                   choices=['float32', 'bfloat16'],
+                   help='bfloat16: convs and dense layers in bf16 with f32 '
+                        'params, Adam, scale heads, classifier product and '
+                        'losses')
+    p.add_argument('--remat', default='none',
+                   choices=['none', 'full', 'dots'],
+                   help='recompute the loss forward in the backward pass '
+                        "(torch.utils.checkpoint): 'full' keeps only its "
+                        "inputs, 'dots' keeps the 2-d matmul outputs. Same "
+                        'math')
+    p.add_argument('--input-s2d', default='off', choices=['on', 'off'],
+                   help="space-to-depth form of the encoder's first conv "
+                        '(s2d(2) + 2x2/s1): same params, same math')
+    p.add_argument('--output-s2d', default='off', choices=['on', 'off'],
+                   help="space-to-depth form of the decoder's last "
+                        'transposed conv; the recon loss compares in s2d '
+                        'space: same params, same math')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--posterior-locs', default='relu',
                    choices=['relu', 'linear'])
@@ -65,6 +83,17 @@ def parse_args(argv=None):
                    help='train steps per dispatch: one host->device copy '
                         'and one augment launch per chunk of N steps; '
                         'results equal per-step dispatch bit for bit')
+    p.add_argument('--resident-eval', default='auto',
+                   choices=['auto', 'off'],
+                   help="'auto' copies a fitting val/test split to the "
+                        'device once and gathers each eval batch there '
+                        "(same values); 'off' ships every batch")
+    p.add_argument('--resident-train', default='auto',
+                   choices=['auto', 'off'],
+                   help="'auto' copies fitting train splits to the device "
+                        'once; each dispatch then sends only an index '
+                        "tensor (same params); 'off' ships every batch. "
+                        'Off with --augment-pad or over the budget')
     p.add_argument('--parity', action='store_true',
                    help='shuffle once at init (the reference loader) '
                         'instead of every epoch')
@@ -81,17 +110,21 @@ def build_configs(args, sup):
                                  gate_subtype=args.gate_subtype)
         model_cfg = dataclasses.replace(
             model_cfg, compute_dtype=args.compute_dtype,
-            posterior_locs=args.posterior_locs)
+            posterior_locs=args.posterior_locs,
+            input_s2d=args.input_s2d == 'on',
+            output_s2d=args.output_s2d == 'on')
     else:
         model_cfg = ModelConfig(z_dim=args.z_dim, gate_type=args.gate_type,
                                 gate_subtype=args.gate_subtype,
                                 compute_dtype=args.compute_dtype,
-                                posterior_locs=args.posterior_locs)
+                                posterior_locs=args.posterior_locs,
+                                input_s2d=args.input_s2d == 'on',
+                                output_s2d=args.output_s2d == 'on')
     train_cfg = TrainConfig(n_epochs=args.epochs, batch_size=args.batch_size,
                             lr=args.lr, perc_supervision=sup,
                             gating_reg=args.l1_reg, seed=args.seed,
                             deterministic_eval=args.deterministic_eval,
-                            augment_pad=args.augment_pad)
+                            augment_pad=args.augment_pad, remat=args.remat)
     return model_cfg, train_cfg
 
 
@@ -142,7 +175,9 @@ def run(args, sup: float):
                       checkpoint_dir=os.path.join(param_dir, 'checkpoints'),
                       metrics_path=os.path.join(param_dir, 'metrics.csv'),
                       steps_per_dispatch=args.steps_per_dispatch,
-                      device=args.device)
+                      device=args.device,
+                      resident_eval=args.resident_eval,
+                      resident_train=args.resident_train)
     os.makedirs(param_dir, exist_ok=True)
     if args.do_train or recorded is None:
         save_model_config(model_cfg, param_dir)

@@ -6,10 +6,11 @@ never imports the JAX package. ``save_model_config``/``load_model_config``
 read and write the same ``model_config.json``, so a run directory is
 readable by either package.
 
-``dtype`` and ``matmul_precision`` map to torch: ``compute_dtype='float32'``
-is the counterpart of ``precision='highest'`` and turns TF32 off in cuDNN
-and cuBLAS (``apply_precision``). Values this slice does not support yet
-raise ``NotImplementedError`` naming the ROADMAP item that adds them
+``dtype`` and ``matmul_precision`` map to torch (``apply_precision``):
+TF32 stays off in cuDNN and cuBLAS in both compute dtypes, so the f32
+remainder of a bf16 step runs in full f32 as the JAX package's does.
+The one value the port does not run yet, a device mesh, raises
+``NotImplementedError`` naming the ROADMAP item that adds it
 (``check_supported``).
 """
 
@@ -160,30 +161,25 @@ class DataConfig:
 
 
 def check_supported(model: ModelConfig, train: Optional[TrainConfig] = None,
-                    data: Optional[DataConfig] = None) -> None:
-    """Raise NotImplementedError for config values this slice of the port
-    does not run yet, naming the ROADMAP item that will add each."""
-    if model.compute_dtype != 'float32':
+                    data: Optional[DataConfig] = None, mesh=None) -> None:
+    """Raise for what this port does not run yet: a device mesh (ROADMAP
+    Queue 1 item 12). Every ModelConfig, TrainConfig and DataConfig value
+    the JAX package runs on one device is supported."""
+    if mesh is not None:
         raise NotImplementedError(
-            f"compute_dtype={model.compute_dtype!r}: only 'float32' is "
-            'ported (bf16: ROADMAP Queue 1 item 3)')
-    if model.input_s2d or model.output_s2d:
-        raise NotImplementedError(
-            'input_s2d/output_s2d: ROADMAP Queue 1 item 3 (s2d regroupings)')
-    if train is not None and train.remat != 'none':
-        raise NotImplementedError(
-            f'remat={train.remat!r}: ROADMAP Queue 1 item 6 '
-            '(torch.utils.checkpoint)')
-    if data is not None and data.device_resize:
-        raise NotImplementedError(
-            'device_resize: ROADMAP Queue 1 item 11 (ops/resize.py)')
+            'mesh: ROADMAP Queue 1 item 12 (data parallelism)')
 
 
 def apply_precision(model: ModelConfig) -> None:
-    """f32 mode: full-precision f32 convs and matmuls. cuDNN runs f32 convs
-    in TF32 by default; this is the counterpart of the JAX package's
-    precision='highest'. Process-wide (torch.backends flags)."""
-    check_supported(model)
+    """TF32 off in cuDNN and cuBLAS, process-wide (torch.backends flags).
+
+    f32 mode: full-precision convs and matmuls, the counterpart of the JAX
+    package's precision='highest' (cuDNN runs f32 convs in TF32 by
+    default). bf16 mode: the JAX package passes precision=None, which on
+    its CPU backend leaves the f32 remainder of the step (the conditional
+    prior, the classifier's f32 product of bf16-rounded operands, the
+    losses) in full f32; TF32 stays off so the card does the same. The
+    bf16 convs and matmuls are not affected by these flags."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 

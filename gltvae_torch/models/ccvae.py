@@ -26,9 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from gltvae_torch.config import ModelConfig, check_supported
+from gltvae_torch.config import ModelConfig
 from gltvae_torch.models.networks import (ConditionalPrior, Decoder, Encoder,
-                                          GatedClassifier)
+                                          GatedClassifier, depth_to_space,
+                                          space_to_depth)
 from gltvae_torch.ops.distributions import (bernoulli_log_prob,
                                             bernoulli_log_prob_probs,
                                             bernoulli_sample, gaussian_kl,
@@ -67,14 +68,16 @@ class CCVAE(nn.Module):
     def __init__(self, cfg: ModelConfig, mu_init: Optional[np.ndarray] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         c = cfg
         self.encoder = Encoder(c.z_dim, c.enc_features, c.enc_hidden,
-                               c.posterior_locs, c.channels, generator)
+                               c.posterior_locs, c.channels, generator,
+                               input_s2d=c.input_s2d, dtype=c.dtype)
         self.decoder = Decoder(c.z_dim, c.dec_hidden or c.z_dim,
-                               c.dec_features, c.channels, generator)
-        self.classifier = GatedClassifier(c.y_dim, c.z_classify, generator)
+                               c.dec_features, c.channels, generator,
+                               output_s2d=c.output_s2d, dtype=c.dtype)
+        self.classifier = GatedClassifier(c.y_dim, c.z_classify, generator,
+                                          dtype=c.dtype)
         self.cond_prior = ConditionalPrior(c.z_classify, c.y_dim)
         if c.gate_type == 'fixed' and c.gate_subtype == 'one-one':
             mu = identity_gating_matrix(c.z_classify, c.y_dim)
@@ -95,10 +98,15 @@ class CCVAE(nn.Module):
         return self.encoder(x)
 
     def decode(self, z):
-        return self.decoder(z)
+        """p(x|z) as an (S, S, C) image, with or without output_s2d."""
+        out = self.decoder(z)
+        return depth_to_space(out) if self.cfg.output_s2d else out
 
     def _recon_log_lik(self, z, x):
-        """log p(x|z), compared in NCHW (the sum is layout-invariant)."""
+        """log p(x|z), compared in NCHW (the sum is layout-invariant); with
+        output_s2d the target is regrouped to the decoder's s2d form."""
+        if self.cfg.output_s2d:
+            x = space_to_depth(x)
         return img_log_likelihood(self.decoder.forward_nchw(z),
                                   x.permute(0, 3, 1, 2))
 

@@ -10,20 +10,31 @@ Schedule semantics as in the reference Learner.train (gated_ccvae.py:
 - gating temperature ×0.99 an epoch for learnable gating;
 - a NaN-gate guard checked every ``nan_check_every`` steps.
 
-Each dispatch ships its uint8 batches to the device in one copy and runs
-the train steps there; metrics stay on the device until the logger
-flushes. With ``steps_per_dispatch`` n > 1 a dispatch is a chunk of up to
-n steps (``make_mixed_scan_train_step``), cut by the JAX Trainer's rule; it
-equals n per-step dispatches bit for bit.
+**Device-resident splits** (the default, as in the JAX Trainer): a train
+or eval split that fits its byte budget (``resident_train_max_bytes``,
+``resident_eval_max_bytes``) is copied to the device once as uint8 rows;
+each dispatch then sends only an [n, B] index tensor and gathers its
+batches on the device. Training cursors advance by the loaders'
+``_next_batch_idxs``, the same index stream the host iterators consume,
+so params, metrics and eval values equal the host-shipped path's bit for
+bit. Resident training is off for augmented runs, for host-sharded
+loaders, over budget, or when the sup and unsup images differ in shape;
+a split that does not fit is logged and streamed from the host.
+
+Otherwise each dispatch ships its uint8 batches to the device in one copy.
+Metrics stay on the device until the logger flushes. With
+``steps_per_dispatch`` n > 1 a dispatch is a chunk of up to n steps, cut
+by the JAX Trainer's rule (resident training always dispatches chunks);
+eval and ELBO batches go in chunks of n too. A chunk equals n per-step
+dispatches bit for bit.
 
 With ``TrainConfig.augment_pad`` P > 0 the train batches arrive padded to
 S+2P and the augment kernel crops each back to S x S (random offset,
 random horizontal flip, x * 1/255) on the device, one launch per dispatch.
 The draw for global step s comes from a generator seeded by
 ``step_seed(seed + 2, s)``, so the crops do not depend on
-``steps_per_dispatch``. Eval batches are never augmented. Resident
-splits, TensorBoard and a mesh are not ported yet; a mesh raises
-NotImplementedError.
+``steps_per_dispatch``. Eval batches are never augmented. TensorBoard and
+a mesh are not ported yet; a mesh raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,9 +57,11 @@ from gltvae_torch.train.checkpoint import (CheckpointManager,
                                            export_gating_matrix)
 from gltvae_torch.train.metrics import MetricsLogger, Throughput
 from gltvae_torch.train.state import create_train_state, init_model, step_seed
-from gltvae_torch.train.steps import (make_elbo_eval_step, make_eval_step,
-                                      make_mixed_scan_train_step,
-                                      make_train_steps)
+from gltvae_torch.train.steps import (
+    make_mixed_scan_train_step, make_resident_elbo_step,
+    make_resident_eval_step, make_resident_mixed_scan_train_step,
+    make_resident_scan_train_steps, make_scan_elbo_step, make_scan_eval_step,
+    make_train_steps)
 
 logger = logging.getLogger(__name__)
 
@@ -66,11 +79,16 @@ class Trainer:
                  nan_check_every: int = 50,
                  steps_per_dispatch: int = 1,
                  device=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh: ROADMAP Queue 1 item 12 (data parallelism)')
-        check_supported(model_cfg, train_cfg)
+                 mesh=None,
+                 resident_eval: str = 'auto',
+                 resident_eval_max_bytes: int = 768 * 2**20,
+                 resident_train: str = 'auto',
+                 resident_train_max_bytes: int = 3 * 2**30):
+        check_supported(model_cfg, train_cfg, mesh=mesh)
+        for name, mode in (('resident_eval', resident_eval),
+                           ('resident_train', resident_train)):
+            if mode not in ('auto', 'off'):
+                raise ValueError(f"{name} must be 'auto' or 'off'")
         self.device = resolve_device(device)
         apply_precision(model_cfg)
         self.cfg = train_cfg
@@ -84,8 +102,18 @@ class Trainer:
         # its flag says (uniform chunks are mixed chunks of one kind)
         self._chunk_step = (make_mixed_scan_train_step(model, train_cfg)
                             if self.steps_per_dispatch > 1 else None)
-        self._eval_step = make_eval_step(model, train_cfg)
-        self._elbo_step = make_elbo_eval_step(model, train_cfg)
+        self._scan_eval = make_scan_eval_step(model, train_cfg)
+        self._scan_elbo = make_scan_elbo_step(model, train_cfg)
+        self._resident_eval_step = make_resident_eval_step(model, train_cfg)
+        self._resident_elbo_step = make_resident_elbo_step(model, train_cfg)
+        # 'auto' = resident when the splits fit their budget; 'off' = always
+        # shipped from the host
+        self._resident_eval_mode = resident_eval
+        self._resident_eval_budget = resident_eval_max_bytes
+        self._resident_train_mode = resident_train
+        self._resident_train_budget = resident_train_max_bytes
+        self._resident_data: dict = {}   # id(loader) -> (loader, x, y)
+        self._resident_train_fns: dict = {}
         self.gating_temp = train_cfg.gating_temp_for(model_cfg)
         self.ckpt = (CheckpointManager(checkpoint_dir)
                      if checkpoint_dir else None)
@@ -194,45 +222,64 @@ class Trainer:
             logger.info('resumed at step %d (epoch %d), gating temp %.4f',
                         int(self.state.step), start_epoch, self.gating_temp)
 
+        # resident training: the train split(s) go to the device once and
+        # every dispatch below sends only an [n, B] index tensor; None
+        # (gated off or over budget) -> the host-shipped path
+        res_train = self._resident_train_splits(loaders)
+        scan_on = self._chunk_step is not None or res_train is not None
+        semi_res = res_train is not None and len(res_train) == 2
+
         for epoch in range(start_epoch, epochs):
             total, period, sup_batches = self.epoch_schedule(loaders)
             flags = self._schedule_flags(total, period, sup_batches)
-            sup_iter = iter(loaders['sup']) if 'sup' in loaders else None
-            unsup_iter = (iter(loaders['unsup']) if 'unsup' in loaders
-                          else None)
+            sup_iter = unsup_iter = None
+            if res_train is None:
+                sup_iter = iter(loaders['sup']) if 'sup' in loaders else None
+                unsup_iter = (iter(loaders['unsup']) if 'unsup' in loaders
+                              else None)
             pending_gates = []
             t_epoch = time.perf_counter()
             epoch_imgs0 = self.throughput.images_total
-            # semi-sup interleaves (period >= 2) dispatch mixed chunks;
-            # other schedules cut uniform chunks at the first kind flip
-            mixed = self.steps_per_dispatch > 1 and period > 1
+            # semi-sup interleaves (period >= 2) dispatch mixed chunks, and
+            # so do resident sup+unsup splits; other schedules cut uniform
+            # chunks at the first kind flip
+            mixed = scan_on and period > 1
             i = 0
-            for n in self._chunk_sizes(flags, self.steps_per_dispatch, mixed):
+            for n in self._chunk_sizes(flags, self.steps_per_dispatch,
+                                       mixed or semi_res):
                 chunk = flags[i:i + n]
-                bx, by = zip(*(next(sup_iter if f else unsup_iter)
-                               for f in chunk))
-                if n > 1:                       # one stacked copy
-                    x, y = self._place((np.stack(bx), np.stack(by)))
+                if res_train is not None:
+                    self.state, ms = self._resident_chunk(
+                        loaders, res_train, chunk)
+                    n_imgs = n * self.cfg.batch_size
                 else:
-                    x, y = self._place((bx[0], by[0]))
-                if self.cfg.augment_pad > 0:
-                    x = self._augment(x)
-                if n > 1:
-                    self.state, ms = self._chunk_step(
-                        self.state, x, y, chunk, self.gating_temp)
-                else:
-                    step_fn = self._sup_step if chunk[0] else self._unsup_step
-                    self.state, ms = step_fn(self.state, x, y,
-                                             self.gating_temp)
+                    bx, by = zip(*(next(sup_iter if f else unsup_iter)
+                                   for f in chunk))
+                    if n > 1:                       # one stacked copy
+                        x, y = self._place((np.stack(bx), np.stack(by)))
+                    else:
+                        x, y = self._place((bx[0], by[0]))
+                    if self.cfg.augment_pad > 0:
+                        x = self._augment(x)
+                    if n > 1:
+                        self.state, ms = self._chunk_step(
+                            self.state, x, y, chunk, self.gating_temp)
+                    else:
+                        step_fn = (self._sup_step if chunk[0]
+                                   else self._unsup_step)
+                        self.state, ms = step_fn(self.state, x, y,
+                                                 self.gating_temp)
+                    n_imgs = n * len(bx[0])
+                stacked = res_train is not None or n > 1    # metrics [n]
                 pending_gates.append(ms['c_nan'].any())
-                self.throughput.step(n * len(bx[0]))
+                self.throughput.step(n_imgs)
                 # every inner step on the log_every cadence gets its own
                 # row, so metrics.csv is the same for any steps_per_dispatch
                 for j in range(n):
                     if (i + j) % log_every == 0:
                         self.metrics.log(
                             int(i + j + epoch * total),
-                            {k: (v[j] if n > 1 else v)
+                            {k: (v[j] if stacked else v)
                              for k, v in ms.items() if k != 'c_nan'},
                             epoch=epoch, supervised=int(chunk[j]))
                 i += n
@@ -314,31 +361,145 @@ class Trainer:
                      else list(CELEBA_LABELS)[:y_dim])
             export_gating_matrix(self.model.mu, param_dir, model_id, names)
 
+    # ----------------------------- resident -----------------------------
+    def _resident_split(self, loader, budget: int):
+        """(images, labels) of `loader`'s split on the device, if it fits
+        `budget` bytes, else None. Copied once per loader and cached. Off
+        for host-sharded loaders (they hold only this process's rows) and
+        loaders without the index-stream API."""
+        if getattr(loader, 'shard', None) is not None \
+                or not hasattr(loader, 'epoch_indices'):
+            return None
+        ent = self._resident_data.get(id(loader))
+        if ent is not None:
+            return ent[1], ent[2]
+        ds = loader.dataset
+        x0, y0 = ds.fetch(np.asarray([0]))
+        if (x0.nbytes + y0.nbytes) * len(ds) > budget:
+            logger.info('resident: a split of %d rows (%d MB) is over the '
+                        '%d MB budget; streaming it from the host', len(ds),
+                        (x0.nbytes + y0.nbytes) * len(ds) >> 20,
+                        budget >> 20)
+            return None
+        x, y = self._place(ds.fetch(np.arange(len(ds))))
+        self._resident_data[id(loader)] = (loader, x, y)
+        return x, y
+
+    def _resident_eval_split(self, loader):
+        if self._resident_eval_mode == 'off':
+            return None
+        return self._resident_split(loader, self._resident_eval_budget)
+
+    def _resident_train_splits(self, loaders) -> Optional[dict]:
+        """{'sup'/'unsup': (images, labels)} on the device when every train
+        split fits the combined budget, else None. Augmented runs stay
+        host-shipped (the augment kernel takes padded batches), and the sup
+        and unsup images must have one shape."""
+        if self._resident_train_mode == 'off' or self.cfg.augment_pad > 0:
+            return None
+        modes = [m for m in ('sup', 'unsup') if m in loaders]
+        total, shapes = 0, set()
+        for m in modes:
+            loader = loaders[m]
+            if getattr(loader, 'shard', None) is not None \
+                    or not hasattr(loader, '_next_batch_idxs'):
+                return None
+            x0, y0 = loader.dataset.fetch(np.asarray([0]))
+            total += (x0.nbytes + y0.nbytes) * len(loader.dataset)
+            shapes.add(x0.shape[1:])
+        if not modes or len(shapes) != 1:
+            return None
+        if total > self._resident_train_budget:
+            logger.info('resident train: %d MB over the %d MB budget; '
+                        'streaming batches from the host', total >> 20,
+                        self._resident_train_budget >> 20)
+            return None
+        out = {m: self._resident_split(loaders[m], total) for m in modes}
+        if any(v is None for v in out.values()):
+            return None
+        logger.info('resident train: %d MB copied to the device once (%s)',
+                    total >> 20, '+'.join(modes))
+        return out
+
+    def _get_resident_train_fn(self, kind: str):
+        """The resident chunk of `kind` ('sup', 'unsup' or 'mixed'), built
+        on first use."""
+        fn = self._resident_train_fns.get(kind)
+        if fn is None:
+            if kind == 'mixed':
+                fn = make_resident_mixed_scan_train_step(self.model,
+                                                         self.cfg)
+            else:
+                fns = make_resident_scan_train_steps(self.model, self.cfg)
+                fn = fns[kind == 'unsup']
+            self._resident_train_fns[kind] = fn
+        return fn
+
+    def _resident_chunk(self, loaders, res_train: dict, chunk):
+        """One resident dispatch: the chunk's index rows from the loaders'
+        cursors, in one copy, then the resident chunk step."""
+        idx = np.stack([(loaders['sup'] if f else loaders['unsup'])
+                        ._next_batch_idxs() for f in chunk])
+        idxs = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        if len(res_train) == 2:
+            (xs, ys), (xu, yu) = res_train['sup'], res_train['unsup']
+            return self._get_resident_train_fn('mixed')(
+                self.state, xs, ys, xu, yu, idxs, chunk, self.gating_temp)
+        kind = 'sup' if chunk[0] else 'unsup'
+        x, y = res_train[kind]
+        return self._get_resident_train_fn(kind)(self.state, x, y, idxs,
+                                                 self.gating_temp)
+
+    def _epoch_idxs(self, loader) -> torch.Tensor:
+        return torch.from_numpy(loader.epoch_indices().astype(np.int64)) \
+            .to(self.device)
+
     # ------------------------------- eval -------------------------------
-    def evaluate(self, loader, gating_temp: Optional[float] = None) -> float:
-        """Mean accuracy over ceil(n/bs) batches."""
-        temp = self.gating_temp if gating_temp is None else gating_temp
+    def _eval_chunks(self, loader):
+        """The eval epoch's batches as (x, y) on the device: chunks of up to
+        steps_per_dispatch batches stacked in one copy each."""
         it = iter(loader)
-        accs = []
-        for _ in range(loader.epoch_batches):
-            x, y = self._place(next(it))
-            accs.append(self._eval_step(self.model, x, y, self._eval_gen,
-                                        temp))
-        return float(torch.stack(accs).mean())
+        n_batches, i = loader.epoch_batches, 0
+        while i < n_batches:
+            n = min(self.steps_per_dispatch, n_batches - i)
+            bx, by = zip(*(next(it) for _ in range(n)))
+            yield self._place((np.stack(bx), np.stack(by)))
+            i += n
+
+    def evaluate(self, loader, gating_temp: Optional[float] = None) -> float:
+        """Mean accuracy over ceil(n/bs) batches: one resident pass when
+        the split fits, else shipped chunks; the eval generator advances
+        batch by batch either way, so the values are the same."""
+        temp = self.gating_temp if gating_temp is None else gating_temp
+        res = self._resident_eval_split(loader)
+        if res is not None:
+            accs = self._resident_eval_step(
+                self.model, *res, self._epoch_idxs(loader), self._eval_gen,
+                temp)
+        else:
+            accs = torch.cat([self._scan_eval(self.model, xs, ys,
+                                              self._eval_gen, temp)
+                              for xs, ys in self._eval_chunks(loader)])
+        return float(accs.mean())
 
     def test(self, loader) -> float:
         """Test protocol: the gating temperature is the eval temperature."""
         return self.evaluate(loader, gating_temp=self.cfg.eval_gating_temp)
 
     def test_elbo(self, loader, gating_temp: Optional[float] = None) -> float:
-        """Mean unsupervised ELBO over ceil(n/bs) batches."""
+        """Mean unsupervised ELBO over ceil(n/bs) batches (resident or
+        shipped, as ``evaluate``)."""
         temp = self.gating_temp if gating_temp is None else gating_temp
-        it = iter(loader)
-        vals = []
-        for _ in range(loader.epoch_batches):
-            x, _ = self._place(next(it))
-            vals.append(self._elbo_step(self.model, x, self._eval_gen, temp))
-        return float(torch.stack(vals).mean())
+        res = self._resident_eval_split(loader)
+        if res is not None:
+            vals = self._resident_elbo_step(
+                self.model, res[0], self._epoch_idxs(loader), self._eval_gen,
+                temp)
+        else:
+            vals = torch.cat([self._scan_elbo(self.model, xs,
+                                              self._eval_gen, temp)
+                              for xs, _ in self._eval_chunks(loader)])
+        return float(vals.mean())
 
     def restore(self, step: Optional[int] = None):
         if self.ckpt is None:

@@ -4,7 +4,10 @@ Both of its runs go to the CPU here, so they agree bit for bit. A fault
 planted in the first ("card") run only must trip the check: a wrong
 learning rate through the Adam-step limit, and gradients 5% off through
 the Adam m and v limit (Adam's move barely changes when every gradient is
-scaled, so a params limit alone would miss it)."""
+scaled, so a params limit alone would miss it). Phase 14's bf16 check
+(bf16, both s2d flags, remat 'dots', the batch gathered from a resident
+split) must catch a dropped bias within the tolerances measured on the
+card."""
 
 import dataclasses
 
@@ -22,7 +25,7 @@ torch.set_num_threads(2)
 B, S, PAD = 8, 16, 2
 
 
-def _card_vs_cpu(monkeypatch, lr_scale=1.0, grad_scale=1.0):
+def _card_vs_cpu(monkeypatch, lr_scale=1.0, grad_scale=1.0, bf16=None):
     monkeypatch.setattr(chip_smoke, 'BATCH', B)
     failed = []
     monkeypatch.setattr(chip_smoke, 'check',
@@ -35,6 +38,8 @@ def _card_vs_cpu(monkeypatch, lr_scale=1.0, grad_scale=1.0):
         if len(models) == 1:
             train_cfg = dataclasses.replace(train_cfg,
                                             lr=train_cfg.lr * lr_scale)
+            if bf16 is not None:
+                model.classifier.forward = bf16(model.classifier)
         return real_make(model, train_cfg)
 
     def keras_adam_update(state, grads, lr, **kw):
@@ -48,26 +53,48 @@ def _card_vs_cpu(monkeypatch, lr_scale=1.0, grad_scale=1.0):
                                  enc_features=(8, 8), enc_hidden=16,
                                  dec_features=(16, 8))
     train_cfg = tcfg.TrainConfig(batch_size=B, augment_pad=PAD)
+    kw = dict(draws=_draws())
+    y_dim, size = 4, S
+    if bf16 is not None:        # phase 14's bf16 check, resident gather
+        # CelebA-64's image size and labels at narrow widths: the recon
+        # term, which the importance weight multiplies, at its real size
+        y_dim, size = 18, 64
+        model_cfg = tcfg.ModelConfig(
+            image_size=size, z_dim=24, y_dim=y_dim, enc_features=(8,) * 4,
+            enc_hidden=16, dec_features=(16, 8, 8, 8),
+            compute_dtype='bfloat16', input_s2d=True, output_s2d=True)
+        train_cfg = tcfg.TrainConfig(batch_size=B, remat='dots',
+                                     classifier_mc_samples=8)
+        kw = dict(resident=True, tol=chip_smoke.BF16_TOL)
+    pad = 0 if bf16 is not None else PAD
     rng = np.random.RandomState(0)
-    batches = [(rng.randint(0, 256, (B, S + 2 * PAD, S + 2 * PAD, 3))
-                .astype(np.uint8), (rng.rand(B, 4) > 0.5).astype(np.float32))
-               for _ in range(2)]
-    g = torch.Generator().manual_seed(2)
-    draws = [torch.stack(v) for v in zip(*(
-        preprocess.draw_crop_flip(g, B, S + 2 * PAD, S + 2 * PAD, S)
-        for _ in range(2)))]
-    mu = np.full((4, 4), 0.5, np.float32)
+    batches = [(rng.randint(0, 256, (B, size + 2 * pad, size + 2 * pad, 3))
+                .astype(np.uint8), (rng.rand(B, y_dim) > 0.5)
+                .astype(np.float32)) for _ in range(2)]
+    mu = np.full((y_dim, y_dim), 0.5, np.float32)
     worst = chip_smoke.card_vs_cpu(0, 'test', model_cfg, train_cfg, mu,
                                    batches, torch.device('cpu'),
-                                   lambda: None, draws=draws)
+                                   lambda: None, **kw)
     return worst, failed
+
+
+def _draws():
+    g = torch.Generator().manual_seed(2)
+    return [torch.stack(v) for v in zip(*(
+        preprocess.draw_crop_flip(g, B, S + 2 * PAD, S + 2 * PAD, S)
+        for _ in range(2)))]
+
+
+def _bias_dropped(clf):
+    real = clf.forward
+    return lambda z, gates: real(z, gates) - clf.bias
 
 
 def test_identical_runs_agree_bit_for_bit(monkeypatch):
     worst, failed = _card_vs_cpu(monkeypatch)
     assert failed == []
-    assert worst == dict(metrics=0.0, adam_m=0.0, adam_v=0.0, adam_step=0.0,
-                         params=0.0)
+    assert worst == dict(metrics=0.0, adam_m=0.0, adam_v=0.0, adam_m_l2=0.0,
+                         adam_v_l2=0.0, adam_step=0.0, params=0.0)
 
 
 @pytest.mark.parametrize('fault,caught', [
@@ -77,3 +104,20 @@ def test_identical_runs_agree_bit_for_bit(monkeypatch):
 def test_a_fault_in_the_card_run_fails_the_check(monkeypatch, fault, caught):
     worst, failed = _card_vs_cpu(monkeypatch, **fault)
     assert len(failed) == 1 and caught in failed[0], failed
+
+
+def test_identical_bf16_runs_agree_bit_for_bit(monkeypatch):
+    worst, failed = _card_vs_cpu(monkeypatch, bf16=lambda clf: clf.forward)
+    assert failed == [] and not any(worst.values())
+
+
+def test_the_bf16_check_catches_a_dropped_bias(monkeypatch):
+    """Phase 14's bf16 tolerances (BF16_TOL, measured on the card) catch
+    the classifier's bias dropped in the card run. A subtler fault, the
+    classifier's product rounded to bf16, moves this model's metrics by
+    2.7e-5 rel and its gradient by 2.9e-3 rel L2: inside the card's own
+    bf16 noise, so tests/test_torch_bf16.py holds that product to gltvae's
+    at rtol 1e-5 instead."""
+    worst, failed = _card_vs_cpu(monkeypatch, bf16=_bias_dropped)
+    assert failed and all('disagree' in f for f in failed), failed
+    assert worst['metrics'] > chip_smoke.BF16_TOL['metrics']

@@ -126,26 +126,29 @@ def test_model_config_json_read_by_both(tmp_path):
 @pytest.mark.parametrize('bad', [dict(compute_dtype='bfloat16'),
                                  dict(input_s2d=True), dict(output_s2d=True)])
 def test_unsupported_model_values_raise(bad):
+    """bf16 and the s2d flags, once unsupported, now build a model; the one
+    value still raising is a device mesh (ROADMAP Queue 1 item 12)."""
     cfg = tcfg.ModelConfig(**bad)
+    tcfg.check_supported(cfg)
+    model = TCCVAE(cfg, mu_init=np.eye(18))
+    assert model.encoder.input_s2d == cfg.input_s2d
+    assert model.decoder.output_s2d == cfg.output_s2d
+    assert model.encoder.dtype == model.classifier.dtype == cfg.dtype
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcfg.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TCCVAE(cfg, mu_init=np.eye(18))
+        tcfg.check_supported(cfg, mesh=object())
 
 
 @pytest.mark.parametrize('train,data', [
     (dict(remat='full'), {}), (dict(augment_pad=2), dict(augment_pad=2)),
     ({}, dict(device_resize=True))])
 def test_unsupported_train_data_values_raise(train, data):
-    """Each value raises naming its ROADMAP item, except augment_pad, which
-    the port runs now (in TrainConfig and DataConfig both)."""
+    """remat, augment_pad and device_resize, once unsupported, now pass;
+    only a mesh raises, naming its ROADMAP item."""
     args = (tcfg.ModelConfig(), tcfg.TrainConfig(**train),
             tcfg.DataConfig(**data))
-    if 'augment_pad' in train:
-        tcfg.check_supported(*args)
-        return
+    tcfg.check_supported(*args)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcfg.check_supported(*args)
+        tcfg.check_supported(*args, mesh=object())
 
 
 # ----------------------------- bridge -----------------------------

@@ -179,3 +179,28 @@ def test_cli_trains_and_tests_on_cpu(tmp_path):
     for name in ('metrics.csv', 'learned_gating_matrix_best.npy',
                  'gating_history.npz'):
         assert (run / name).exists()
+
+
+def test_cli_bf16_s2d_remat_flags_on_cpu(tmp_path):
+    """train.py's --compute-dtype/--input-s2d/--output-s2d/--remat/
+    --resident-* flags reach the configs and the Trainer."""
+    import json
+    from gltvae_torch import cli
+    argv = ['--synthetic', '--do-train', '--epochs', '1', '--sup', '0.5',
+            '-bs', '16', '--synthetic-n', '32', '--device', 'cpu',
+            '--compute-dtype', 'bfloat16', '--input-s2d', 'on',
+            '--output-s2d', 'on', '--remat', 'dots', '--resident-eval',
+            'off', '--output-dir', str(tmp_path)]
+    args = cli.parse_args(argv)
+    model_cfg, train_cfg = cli.build_configs(args, 0.5)
+    assert (model_cfg.compute_dtype, model_cfg.input_s2d,
+            model_cfg.output_s2d, train_cfg.remat) == ('bfloat16', True,
+                                                       True, 'dots')
+    assert (args.resident_train, args.resident_eval) == ('auto', 'off')
+    out = cli.main(argv)
+    run = tmp_path / 'params_0.5_learnable'
+    result = json.loads((run / 'result.json').read_text())
+    assert result['test_accuracy'] == pytest.approx(out[0.5])
+    assert tcfg.load_model_config(str(run)) == model_cfg
+    with pytest.raises(SystemExit):
+        cli.parse_args(['--remat', 'bogus'])
