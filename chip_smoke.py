@@ -46,7 +46,28 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     from a device-resident split: at f32 to phase 6's tolerances, at bf16
     to ``BF16_TOL``;
 15. one sup step on a full-resolution (256, 218, 178, 3) u8 batch (the
-    device resize to 64 px), card vs CPU.
+    device resize to 64 px), card vs CPU;
+16. a CelebA-shaped corpus written from the seed under
+    build/chip_smoke_celeba/ (2,048/512/512 JPEGs of 218x178 at quality
+    95, the 40-column attribute CSV, a partition CSV); CelebAReader's
+    splits and its gating cache (.npy, .sha256, .csv, read back
+    bit-equal);
+17. the threaded BatchLoader (8 workers) bit-equal to the synchronous one
+    over 2 epochs; a filled DiskCachedDataset serves rows bit-equal to a
+    fresh decode without decoding; the decode rate of each backend found;
+18. ``cli.main`` trains the CelebA-64 model from the files (split file,
+    sup 0.5, bs 256, 2 epochs, resident): dequant launches 22;
+19. the same with augment_pad 4 and steps_per_dispatch 4 (72x72 train
+    decode, shipped): augment launches 4 of 1,024 images, dequant 6;
+20. the library Trainer with DataConfig(device_resize=True), 1 epoch:
+    full-resolution rows resident, 12 dequant launches at (256, 218, 178,
+    3) then the resize; each flag that conflicts with device_resize raises
+    first;
+21. where g++ and jpeglib.h exist, the native decode pool builds and
+    trains 1 epoch;
+22. ``gltvae_torch.infer`` labels the 512 test images from phase 18's run
+    folder on the card (2 dequant launches) and on the CPU: probabilities
+    within 1e-4, a second card run writes the same CSV.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Run artifacts go to build/chip_smoke*/.
@@ -319,6 +340,418 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
                 steps=steps, eval_batches=eval_batches, launches=launches,
                 wall=wall, peak=peak, step_s=step_s, rows=rows,
                 resident=sorted(resident))
+
+
+#: phase 16's corpus: the synthetic path's split sizes, so the walls compare
+CORPUS = (2048, 512, 512)
+
+
+def sync(dev):
+    import torch
+    if dev.type == 'cuda':
+        torch.cuda.synchronize(dev)
+
+
+def jpeg_toolchain():
+    """(g++ path or None, jpeglib.h path or None): what the native decode
+    pool needs to build."""
+    inc = [os.path.join(d, 'jpeglib.h')
+           for d in ('/usr/include', '/usr/local/include',
+                     '/usr/include/x86_64-linux-gnu')]
+    return shutil.which('g++'), next((p for p in inc if os.path.exists(p)),
+                                     None)
+
+
+def patched(obj, name, wrap):
+    """Replace obj.name with wrap(obj.name); returns the undo."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    return lambda: setattr(obj, name, orig)
+
+
+def recorder(log):
+    """A wrapper factory: each call's (positional arguments, seconds) goes
+    to `log`."""
+    def wrap(fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            log.append((a, time.perf_counter() - t))
+            return out
+        return run
+    return wrap
+
+
+def celeba_phases(dev, smi):
+    """Phases 16-22: CelebA-shaped JPEG files through the port's data layer,
+    its CLI, the device resize, the native pool and batch inference.
+    Returns the kernels' launches on these paths."""
+    import csv
+    import numpy as np
+    import torch
+    import gltvae_torch.data.celeba as tc
+    import gltvae_torch.train.steps as tsteps
+    from gltvae_torch import cli, infer
+    from gltvae_torch.config import DataConfig, default_celeba64
+    from gltvae_torch.data import native_loader
+    from gltvae_torch.data.pipeline import BatchLoader
+    from gltvae_torch.data.synthetic import write_celeba_corpus
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.loop import Trainer
+    n_train, n_valid, n_test = CORPUS
+    build = os.path.join(ROOT, 'build')
+    out = {}
+
+    # ------------------------------------------------------------- 16
+    backends = []
+    for name, mod in (('pil', 'PIL.Image'), ('cv2', 'cv2')):
+        try:
+            __import__(mod)
+            backends.append(name)
+        except ImportError:
+            pass
+    gxx, jpeglib = jpeg_toolchain()
+    phase(16, f'JPEG codecs: {backends or "none"}; native pool toolchain: '
+              f'g++ {gxx}, jpeglib.h {jpeglib}')
+    check('pil' in backends, 'PIL is needed to write the JPEG corpus')
+    corpus = os.path.join(build, 'chip_smoke_celeba')
+    shutil.rmtree(corpus, ignore_errors=True)
+    t0 = time.perf_counter()
+    made = write_celeba_corpus(corpus, n_train, n_valid, n_test, seed=0,
+                               quality=95)
+    corpus_s = time.perf_counter() - t0
+    split = dict(split_file='list_eval_partition.csv')
+    cfg = DataConfig(data_dir=corpus, num_workers=8, **split)
+    reader = tc.CelebAReader(cfg, 0.5, BATCH)
+    sizes = {m: len(s) for m, s in reader.splits.items()}
+    check(sizes == {'train': n_train, 'valid': n_valid, 'test': n_test,
+                    'sup': n_train // 2, 'unsup': n_train // 2},
+          f'reader splits {sizes}')
+    stem = os.path.join(corpus, 'gating_matrix_0.5')
+    check(all(os.path.exists(stem + e) for e in ('.npy', '.npy.sha256',
+                                                 '.csv')),
+          'the gating cache wrote no .npy, .sha256 or .csv')
+    npy = open(stem + '.npy', 'rb').read()
+    again = tc.CelebAReader(cfg, 0.5, BATCH).init_gating_prob
+    check(again.tobytes() == reader.init_gating_prob.tobytes()
+          and open(stem + '.npy', 'rb').read() == npy,
+          'a second reader did not read the gating cache back bit-equal')
+    phase(16, f'corpus of {n_train}/{n_valid}/{n_test} 218x178 JPEGs (q95) '
+              f'in {corpus_s:.2f} s (encode {made["encode_s"]:.2f} s); '
+              f'reader splits {sizes}; gating cache .npy/.sha256/.csv, read '
+              f'back bit-equal')
+
+    # ------------------------------------------------------------- 17
+    image_dir = os.path.join(corpus, 'img_align_celeba')
+    auto = tc.resolve_backend('auto')
+    loaders = {w: BatchLoader(tc.ImageFolderDataset(
+        image_dir, reader.splits['sup'], 64, backend=auto), BATCH, seed=0,
+        num_workers=w) for w in (0, 8)}
+    batches, walls = {}, {}
+    for w, ld in loaders.items():
+        it = iter(ld)
+        t0 = time.perf_counter()
+        batches[w] = [next(it) for _ in range(2 * ld.epoch_batches)]
+        walls[w] = time.perf_counter() - t0
+        it.close()
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              for a, b in zip(batches[0], batches[8])),
+          'threaded loader batches differ from the synchronous ones')
+    n_loaded = sum(len(x) for x, _ in batches[8])
+    del batches
+    valid = reader.splits['valid']
+    cache_dir = os.path.join(build, 'chip_smoke_cache')
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    fresh = tc.ImageFolderDataset(image_dir, valid, 64, backend=auto)
+    fill = tc.DiskCachedDataset(fresh, cache_dir, 'valid')
+    for lo in range(0, len(valid), BATCH):
+        fill.fetch(np.arange(lo, min(lo + BATCH, len(valid))))
+    calls = []
+    inner = tc.ImageFolderDataset(image_dir, valid, 64, backend=auto)
+    inner.fetch = lambda idxs: calls.append(len(idxs))
+    served = tc.DiskCachedDataset(inner, cache_dir, 'valid')
+    idx = np.random.RandomState(0).permutation(len(valid))
+    check(fill.complete and served.complete, 'disk cache not complete')
+    check(np.array_equal(served.fetch(idx)[0], fresh.fetch(idx)[0])
+          and not calls, 'disk cache rows differ from a fresh decode or '
+          'called the decoder')
+    rates = {}
+    idx = np.arange(len(valid))
+    for b in backends:
+        for res, kw in (('64px', {}), ('full', dict(host_resize=False))):
+            ds = tc.ImageFolderDataset(image_dir, valid, 64, backend=b, **kw)
+            t0 = time.perf_counter()
+            ds.fetch(idx)
+            rates[f'{b} {res} 1 thread'] = len(idx) / (time.perf_counter()
+                                                       - t0)
+    native_ok = gxx is not None and jpeglib is not None
+    if native_ok:
+        check(native_loader.is_available(), 'the native pool did not build')
+        for threads in (1, 8):
+            ds = native_loader.NativeImageFolderDataset(
+                image_dir, valid, 64, num_threads=threads)
+            t0 = time.perf_counter()
+            ds.fetch(idx)
+            rates[f'native 64px {threads} threads'] = len(idx) / (
+                time.perf_counter() - t0)
+    rates[f'{auto} 64px BatchLoader 8 workers'] = n_loaded / walls[8]
+    phase(17, f'threaded BatchLoader (8 workers, {auto}) == synchronous on '
+              f'{2 * loaders[8].epoch_batches} u8 batches of {BATCH} (2 '
+              f'epochs), bit for bit; DiskCachedDataset complete, rows '
+              f'bit-equal to a fresh decode with no decoder call')
+    print('decode_rates: ' + '; '.join(f'{k} {v:.1f} img/s'
+                                       for k, v in rates.items())
+          + f'; card {smi}', flush=True)
+    out['decode_rates'] = rates
+
+    # ------------------------------------------------------------- 18
+    def run_cli(run_name, *extra):
+        """cli.main on the corpus with the counts set to 0 just before and
+        read just after; step, fetch and augment calls recorded."""
+        run_dir = os.path.join(build, run_name)
+        shutil.rmtree(run_dir, ignore_errors=True)
+        rec = {'steps': [], 'fetch': [], 'augment': [], 'shapes': []}
+
+        def init(f):            # the chunk step is built per Trainer
+            def run(self, *a, **kw):
+                f(self, *a, **kw)
+                if self._chunk_step is not None:
+                    self._chunk_step = synced(self._chunk_step,
+                                              rec['steps'])
+            return run
+        undo = [patched(Trainer, '__init__', init),
+                patched(Trainer, '_resident_chunk',
+                        lambda f: synced(f, rec['steps'])),
+                patched(Trainer, '_augment',
+                        lambda f: synced(f, rec['augment'], rec['shapes'])),
+                patched(tc.ImageFolderDataset, 'fetch',
+                        recorder(rec['fetch']))]
+        held = 0
+        try:
+            sync(dev)
+            if dev.type == 'cuda':
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+            preprocess.launches = preprocess.augment_launches = 0
+            t0 = time.perf_counter()
+            res = cli.main(['--data-dir', corpus, '--split-file',
+                            'list_eval_partition.csv', '--do-train',
+                            '--epochs', '2', '--sup', '0.5', '-bs',
+                            str(BATCH), '--output-dir', run_dir,
+                            '--device', str(dev), *extra])
+            sync(dev)
+            rec['launches'] = (preprocess.launches,
+                               preprocess.augment_launches)
+            rec['wall'] = time.perf_counter() - t0
+        finally:
+            for u in undo:
+                u()
+        # above what earlier phases still hold on the card
+        rec['peak'] = (torch.cuda.max_memory_allocated(dev) - held
+                       if dev.type == 'cuda' else 0)
+        rec['dir'] = os.path.join(run_dir, 'params_0.5_learnable')
+        with open(os.path.join(rec['dir'], 'result.json')) as f:
+            rec['result'] = json.load(f)
+        check(res[0.5] == rec['result']['test_accuracy']
+              and math.isfinite(res[0.5]), f'{run_name}: test accuracy '
+              f'{res[0.5]}')
+        for name in ('metrics.csv', 'learned_gating_matrix_best.npy',
+                     'learned_gating_matrix_best.csv', 'result.json',
+                     'model_config.json'):
+            check(os.path.exists(os.path.join(rec['dir'], name)),
+                  f'{run_name}: {name} not written')
+        return rec
+
+    r18 = run_cli('chip_smoke_celeba_run')
+    whole = [(len(a[1]), s) for a, s in r18['fetch'] if len(a[1]) > 1]
+    check(sorted(n for n, _ in whole) == sorted(
+        [n_train // 2, n_train // 2, n_valid, n_test]),
+        f'resident splits decoded as {sorted(n for n, _ in whole)}, '
+        f'expected each split once')
+    check(r18['launches'] == (22, 0), f'CelebA-64 from files: dequant, '
+          f'augment launches {r18["launches"]}, expected (22, 0)')
+    hist = r18['result']['history']
+    step_med = statistics.median(r18['steps'][1:])
+    phase(18, f'cli.main from {n_train} JPEGs (split file, sup 0.5, bs '
+              f'{BATCH}, 2 epochs, f32, resident): dequant launches '
+              f'{r18["launches"][0]}, augment {r18["launches"][1]}; '
+              f'metrics.csv, mu export, result.json, model_config.json '
+              f'written; best val acc '
+              f'{r18["result"]["best_val_accuracy"]:.4f}, test acc '
+              f'{r18["result"]["test_accuracy"]:.4f}')
+    print(f'slice_celeba: step_ms median {step_med * 1e3:.3f} (steps 2-16, '
+          f'synchronized; first {r18["steps"][0] * 1e3:.1f}), '
+          f'{BATCH / step_med:.0f} img/s, trainer meter '
+          f'{r18["result"]["images_per_sec"]:.0f} img/s; epoch walls '
+          f'{hist[0]["epoch_time"]:.3f} s / {hist[1]["epoch_time"]:.3f} s; '
+          f'whole-split decode ({auto}, 1 thread) '
+          f'{sum(s for _, s in whole):.3f} s for {sum(n for n, _ in whole)} '
+          f'images; cli wall {r18["wall"]:.2f} s; peak memory '
+          f'{r18["peak"] / 2**20:.1f} MiB above the start; card {smi}',
+          flush=True)
+    out['celeba'] = r18['launches']
+
+    # ------------------------------------------------------------- 19
+    r19 = run_cli('chip_smoke_celeba_augment', '--augment-pad', '4',
+                  '--steps-per-dispatch', '4')
+    shapes = r19['shapes']
+    check(r19['launches'] == (6, 4)
+          and shapes == [(4, BATCH, 64, 64, 3)] * 4,
+          f'augmented from files: dequant, augment launches '
+          f'{r19["launches"]} of {shapes}, expected (6, 4) of 4 x {BATCH}')
+    sizes = sorted(len(a[1]) for a, _ in r19['fetch'])
+    check(sizes.count(BATCH) >= 16 and [n for n in sizes if n > BATCH]
+          == sorted([n_valid, n_test]), f'augmented: fetches of {sizes} '
+          f'rows; expected >= 16 shipped train batches and the eval splits '
+          f'once each')
+    chunk_med = statistics.median(
+        [a + c for a, c in zip(r19['augment'][1:], r19['steps'][1:])])
+    hist = r19['result']['history']
+    phase(19, f'augmented from files (augment_pad 4 -> 72x72 train decode, '
+              f'steps_per_dispatch 4): augment launches {r19["launches"][1]} '
+              f'of {shapes[0][0] * shapes[0][1]} images, dequant launches '
+              f'{r19["launches"][0]}; test acc '
+              f'{r19["result"]["test_accuracy"]:.4f}')
+    print(f'slice_celeba_augment: chunk_ms median {chunk_med * 1e3:.3f} '
+          f'(augment + 4 steps, chunks 2-4), {4 * BATCH / chunk_med:.0f} '
+          f'img/s, trainer meter {r19["result"]["images_per_sec"]:.0f} '
+          f'img/s; epoch walls {hist[0]["epoch_time"]:.3f} s / '
+          f'{hist[1]["epoch_time"]:.3f} s; cli wall {r19["wall"]:.2f} s; '
+          f'peak memory {r19["peak"] / 2**20:.1f} MiB above the start; '
+          f'card {smi}', flush=True)
+    out['celeba_augment'] = r19['launches']
+
+    # ------------------------------------------------------------- 20
+    base = dict(data_dir=corpus, num_workers=8, **split)
+    conflicts = {'cache_dir': dict(cache_dir=cache_dir),
+                 'cache_decoded': dict(cache_decoded=True),
+                 'native': dict(decode_backend='native'),
+                 'augment_pad': dict(augment_pad=4)}
+    preprocess.launches = 0
+    for name, kw in conflicts.items():
+        try:
+            tc.CelebAReader(DataConfig(device_resize=True, **base, **kw),
+                            0.5, BATCH).setup_data_loaders()
+        except ValueError:
+            continue
+        check(False, f'device_resize with {name} did not raise')
+    check(preprocess.launches == 0, 'a refused configuration launched')
+    model_cfg, train_cfg = default_celeba64(sup=0.5, n_epochs=1,
+                                            batch_size=BATCH)
+    dr_backend = 'cv2' if 'cv2' in backends else 'pil'
+    rd = tc.CelebAReader(DataConfig(device_resize=True,
+                                    decode_backend=dr_backend, **base),
+                         0.5, BATCH)
+    trainer = Trainer(model_cfg, train_cfg, mu_init=rd.init_gating_prob,
+                      device=dev)
+    dr_loaders = rd.setup_data_loaders()
+    seen, resized = [], []
+    undo = [patched(tsteps, 'dequant', lambda f: lambda x, *a: (
+                seen.append(tuple(x.shape)), f(x, *a))[1]),
+            patched(tsteps, 'resize_bilinear', lambda f: lambda x, *a: (
+                resized.append(tuple(x.shape)), f(x, *a))[1])]
+    try:
+        sync(dev)
+        preprocess.launches = preprocess.augment_launches = 0
+        t0 = time.perf_counter()
+        result = trainer.train(dr_loaders)
+        acc = trainer.test(dr_loaders['test'])
+        sync(dev)
+        dr_launches = (preprocess.launches, preprocess.augment_launches)
+        dr_wall = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    full = (BATCH, 218, 178, 3)
+    check(set(dr_loaders) == {k for k, ld in dr_loaders.items()
+                              if id(ld) in trainer._resident_data},
+          'device resize: a split did not go resident')
+    check(dr_launches == (12, 0) and seen == [full] * 12
+          and resized == [(BATCH, 218, 178, 3)] * 12,
+          f'device resize: launches {dr_launches}, dequant shapes {seen}, '
+          f'resize inputs {resized}; expected 12 (8 steps, 2 valid, 2 '
+          f'test) at {full}')
+    check(math.isfinite(acc), f'device resize: test accuracy {acc}')
+    phase(20, f'device resize from files ({dr_backend}, full-resolution '
+              f'rows resident): dequant launches {dr_launches[0]} at '
+              f'{full} then the bilinear resize, in {dr_wall:.2f} s; val '
+              f'acc {result["best_val_accuracy"]:.4f}, test acc {acc:.4f}; '
+              f'device_resize with {list(conflicts)} each raised before any '
+              f'launch')
+    out['device_resize'] = dr_launches
+    del trainer, dr_loaders
+
+    # ------------------------------------------------------------- 21
+    if native_ok:
+        r21 = run_cli('chip_smoke_celeba_native', '--decode-backend',
+                      'native', '--epochs', '1')
+        check(r21['launches'] == (12, 0) and not r21['fetch'],
+              f'native: launches {r21["launches"]}, '
+              f'{len(r21["fetch"])} cv2/PIL fetches')
+        phase(21, f'native pool built ({native_loader.LIB_PATH}) and '
+                  f'trained 1 epoch: dequant launches {r21["launches"][0]}')
+    else:
+        phase(21, f'skipped: the native pool needs g++ and jpeglib.h (g++ '
+                  f'{gxx}, jpeglib.h {jpeglib})')
+
+    # ------------------------------------------------------------- 22
+    test_dir = os.path.join(build, 'chip_smoke_celeba_test')
+    shutil.rmtree(test_dir, ignore_errors=True)
+    os.makedirs(test_dir)
+    for name in reader.splits['test'].ids:
+        os.symlink(os.path.join(image_dir, name),
+                   os.path.join(test_dir, name))
+
+    def run_infer(device, tag):
+        probs = []
+        path = os.path.join(build, f'chip_smoke_infer_{tag}.csv')
+        undo = patched(infer, 'write_rows', lambda f: lambda w, n, p: (
+            probs.append(p), f(w, n, p))[1])
+        try:
+            sync(dev)
+            preprocess.launches = 0
+            t0 = time.perf_counter()
+            infer.main(['--checkpoint', r18['dir'], '--images', test_dir,
+                        '--output', path, '--batch-size', str(BATCH),
+                        '--num-workers', '8',
+                        '--device', str(device)])
+            sync(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        with open(path, newline='') as f:
+            rows = list(csv.reader(f))
+        return dict(launches=preprocess.launches, wall=wall, rows=rows,
+                    probs=np.concatenate(probs), bytes=open(path, 'rb').read())
+
+    card = run_infer(dev, 'card')
+    cpu = run_infer(torch.device('cpu'), 'cpu')
+    card2 = run_infer(dev, 'card2')
+    check(card['launches'] == 2, f'inference: {card["launches"]} dequant '
+          f'launches on the card, expected 2')
+    check(len(card['rows']) == n_test + 1 and len(card['probs']) == n_test,
+          f'inference CSV has {len(card["rows"]) - 1} rows')
+    gap = float(np.abs(card['probs'] - cpu['probs']).max())
+    sure = np.abs(cpu['probs'] - 0.5) > 1e-4
+    y = card['probs'].shape[1]
+    hard = [np.array([r[1:1 + y] for r in d['rows'][1:]], int)
+            for d in (card, cpu)]
+    check(gap <= 1e-4 and np.array_equal(hard[0][sure], hard[1][sure]),
+          f'inference card vs CPU: probabilities max abs {gap:.3e} (tol '
+          f'1e-4) or hard labels differ')
+    check(card2['bytes'] == card['bytes'], 'a second card run gave another '
+          'CSV')
+    phase(22, f'python -m gltvae_torch.infer on the phase-18 run over '
+              f'{n_test} test images: dequant launches {card["launches"]}; '
+              f'card vs CPU probabilities max abs {gap:.3e} (tol 1e-4), '
+              f'hard labels equal where |p - 0.5| > 1e-4; a second card '
+              f'run wrote the same CSV')
+    print(f'slice_infer: card {n_test / card["wall"]:.1f} img/s, again '
+          f'{n_test / card2["wall"]:.1f} img/s, CPU '
+          f'{n_test / cpu["wall"]:.1f} img/s (decode, 8 threads, '
+          f'included); card {smi}', flush=True)
+    out['infer'] = card['launches']
+    return out
 
 
 def main():
@@ -825,6 +1258,9 @@ def main():
                               'device-resize step: expected one dequant '
                               'launch'), kinds=(True,))
 
+    # ---------------------------------------------------------- 16-22
+    celeba = celeba_phases(dev, smi)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -842,6 +1278,12 @@ def main():
         # paths' shapes (phase 12)
         'launches_128': launches_128,
         'shapes': dq_shapes,
+        # phases 18-22: CelebA-64 from files, the augmented path from
+        # files (eval only), the device resize, inference
+        'launches_celeba': celeba['celeba'][0],
+        'launches_celeba_augment': celeba['celeba_augment'][0],
+        'launches_device_resize': celeba['device_resize'][0],
+        'launches_infer': celeba['infer'],
     }, {
         'name': 'augment',
         'route': 'cuda',
@@ -858,6 +1300,7 @@ def main():
         'per_step_ms': aug_ms,
         'per_step_plain_ms': aug_plain_ms,
         'per_step_bound_ms': step_bound,
+        'launches_celeba_augment': celeba['celeba_augment'][1],
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

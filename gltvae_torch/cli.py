@@ -1,17 +1,24 @@
 """Command-line entry point of the port (counterpart of train.py).
 
-    python -m gltvae_torch.cli --synthetic --do-train --epochs 2 --sup 0.5 \\
-        -bs 256 --output-dir runs/torch [--device cuda|cpu] \\
-        [--augment-pad 4] [--steps-per-dispatch 4] \\
-        [--image-size 128 --compute-dtype bfloat16 --input-s2d on \\
-         --output-s2d on --remat dots] [--resident-train off]
+    python -m gltvae_torch.cli --data-dir /data/celeba \\
+        --split-file list_eval_partition.csv --do-train --epochs 2 \\
+        --sup 0.5 -bs 256 --output-dir runs/torch [--device cuda|cpu] \\
+        [--decode-backend auto|cv2|pil|native] [--num-workers 8] \\
+        [--cache-decoded | --cache-dir DIR] [--augment-pad 4] \\
+        [--steps-per-dispatch 4] [--image-size 128 --compute-dtype \\
+         bfloat16 --input-s2d on --output-s2d on --remat dots] \\
+        [--resident-train off]
+    python -m gltvae_torch.cli --synthetic --do-train ...   # no files
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Per supervision fraction
-it builds the configs, the loaders and the gating init, trains and/or tests
-a Trainer, and writes ``model_config.json``, ``metrics.csv``, checkpoints,
-the μ export and ``result.json`` under ``<output-dir>/<run name>``. It takes
-the subset of train.py's flags that the port supports; CelebA files wait
-for the data layer (ROADMAP Queue 1 item 8).
+it builds the configs, the loaders and the gating init (from the CelebA
+folder under ``--data-dir``: ``img_align_celeba/``, ``list_attr_celeba.csv``
+and, with ``--split-file``, the partition file; or the synthetic fixture),
+trains and/or tests a Trainer, and writes ``model_config.json``,
+``metrics.csv``, checkpoints, the μ export and ``result.json`` under
+``<output-dir>/<run name>``. It takes the subset of train.py's flags that
+the port supports (not yet: ``--tensorboard``, ``--mesh``,
+``--init-from-h5``, the grain backend).
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ def parse_args(argv=None):
     p.add_argument('--do-test', action='store_true', default=True)
     p.add_argument('--no-test', dest='do_test', action='store_false')
     p.add_argument('--image-size', type=int, default=64, choices=[64, 128])
+    p.add_argument('--data-dir', default='./data',
+                   help='CelebA folder: img_align_celeba/, '
+                        'list_attr_celeba.csv[, the --split-file]')
     p.add_argument('--synthetic', action='store_true',
-                   help='use the synthetic fixture (required for now)')
+                   help='use the synthetic fixture instead of CelebA')
     p.add_argument('--synthetic-n', type=int, default=512,
                    help='synthetic train-set size')
     p.add_argument('--synthetic-signal', action='store_true',
@@ -97,6 +107,29 @@ def parse_args(argv=None):
     p.add_argument('--parity', action='store_true',
                    help='shuffle once at init (the reference loader) '
                         'instead of every epoch')
+    p.add_argument('--num-workers', type=int, default=8,
+                   help='decode threads per loader')
+    p.add_argument('--decode-backend', default='auto',
+                   choices=['auto', 'cv2', 'pil', 'native', 'grain'],
+                   help="host decode: 'native' = the C++ libjpeg pool (built "
+                        "on first use), 'auto' = cv2 with PIL fallback; "
+                        "'grain' is not ported and raises")
+    p.add_argument('--cache-decoded', action='store_true',
+                   help='keep every decoded uint8 image in host RAM after '
+                        'its first decode')
+    p.add_argument('--cache-dir', default=None, metavar='DIR',
+                   help='decoded uint8 rows on disk (np.memmap) under DIR, '
+                        'served to later runs with no decode; the JAX '
+                        "package's file names, so either package fills it "
+                        'for the other')
+    p.add_argument('--n-train', type=int, default=None,
+                   help='train-split size (default: official 162770)')
+    p.add_argument('--n-valid', type=int, default=None)
+    p.add_argument('--n-test', type=int, default=None)
+    p.add_argument('--split-file', default=None, metavar='CSV',
+                   help='split by the partition file (e.g. '
+                        'list_eval_partition.csv, relative to --data-dir; '
+                        '0=train 1=valid 2=test) instead of prefix sizes')
     p.add_argument('--output-dir', default='./models')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
@@ -128,11 +161,36 @@ def build_configs(args, sup):
     return model_cfg, train_cfg
 
 
+def build_data_config(args, model_cfg):
+    """train.py's DataConfig for a model: easy labels at 64 px, a center
+    crop at 128 px."""
+    from gltvae_torch.config import DataConfig
+    split_overrides = {k: v for k, v in
+                       (('n_train', args.n_train), ('n_valid', args.n_valid),
+                        ('n_test', args.n_test)) if v is not None}
+    return DataConfig(data_dir=args.data_dir,
+                      image_size=model_cfg.image_size,
+                      use_easy_labels=(model_cfg.y_dim == 18),
+                      center_crop=(model_cfg.image_size == 128),
+                      num_workers=args.num_workers,
+                      decode_backend=args.decode_backend,
+                      augment_pad=args.augment_pad,
+                      cache_decoded=args.cache_decoded,
+                      cache_dir=args.cache_dir,
+                      split_file=args.split_file,
+                      **split_overrides)
+
+
 def make_loaders(args, model_cfg, train_cfg):
+    """(loaders by split, μ init): CelebA files through CelebAReader, or the
+    synthetic fixture."""
     if not args.synthetic:
-        raise NotImplementedError(
-            'CelebA files: ROADMAP Queue 1 item 8 (standalone data layer); '
-            'pass --synthetic')
+        from gltvae_torch.data.celeba import CelebAReader
+        reader = CelebAReader(build_data_config(args, model_cfg),
+                              train_cfg.perc_supervision,
+                              train_cfg.batch_size, seed=args.seed,
+                              reshuffle_each_epoch=not args.parity)
+        return reader.setup_data_loaders(), reader.init_gating_prob
     from gltvae_torch.data.pipeline import BatchLoader
     from gltvae_torch.data.synthetic import synthetic_splits
     from gltvae_torch.ops.gating import gating_matrix_from_labels
@@ -196,13 +254,29 @@ def run(args, sup: float):
             logger.warning('no checkpoint to restore; testing fresh init')
         acc = trainer.test(loaders['test'])
         logger.info('Test Accuracy (best model): %.3f', acc)
-    if result is not None or acc is not None:
-        payload = {'test_accuracy': acc, 'device': str(trainer.device)}
-        if result is not None:
-            payload.update(result)
-        with open(os.path.join(param_dir, 'result.json'), 'w') as f:
-            json.dump(payload, f, indent=2, default=float)
+    _write_result_json(param_dir, result, acc, str(trainer.device))
     return acc
+
+
+def _write_result_json(param_dir, result, test_accuracy, device):
+    """result.json: the training record and the test accuracy. A test-only
+    rerun keeps the training run's record and refreshes the accuracy."""
+    path = os.path.join(param_dir, 'result.json')
+    if result is None and test_accuracy is None:
+        return
+    payload = {'test_accuracy': test_accuracy, 'device': device}
+    if result is not None:
+        payload.update(result)
+    elif os.path.exists(path):
+        try:
+            with open(path) as f:
+                prior = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            prior = {}
+        prior.update(payload)
+        payload = prior
+    with open(path, 'w') as f:
+        json.dump(payload, f, indent=2, default=float)
 
 
 def main(argv=None):

@@ -1,1 +1,2 @@
-"""In-memory datasets, the batch loader and the synthetic fixture."""
+"""Datasets (in memory, CelebA files, decoded caches), the batch loader,
+the native decode pool and the synthetic fixture."""

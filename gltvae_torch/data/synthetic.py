@@ -69,3 +69,53 @@ def synthetic_splits(n_train: int = 256, n_valid: int = 64, n_test: int = 64,
     out['test'] = ArrayDataset(eval_im[n_valid:],
                                full.labels[n_train + n_valid:])
     return out
+
+
+def write_celeba_corpus(root: str, n_train: int, n_valid: int, n_test: int,
+                        seed: int = 0, height: int = 218, width: int = 178,
+                        quality: int = 95) -> dict:
+    """A CelebA-shaped folder under `root`, made from `seed`: JPEGs of
+    height x width written with PIL at `quality` in ``img_align_celeba/``
+    (000001.jpg, ...), the Kaggle ``list_attr_celeba.csv`` (40 ±1 columns)
+    and ``list_eval_partition.csv`` (the first n_train images train, then
+    valid, then test). Attribute j is the brightness of the j-th cell of a
+    7x7 grid over the image, so a classifier can learn it. Returns the
+    counts and the encode seconds."""
+    import os
+    import time
+
+    import PIL.Image
+    from gltvae_torch.config import CELEBA_LABELS
+    n = n_train + n_valid + n_test
+    n_attr = len(CELEBA_LABELS)
+    rng = np.random.RandomState(seed)
+    on = rng.rand(n, n_attr) > 0.5
+    g = int(np.ceil(np.sqrt(n_attr)))
+    ph, pw = height // g, width // g
+    image_dir = os.path.join(root, 'img_align_celeba')
+    os.makedirs(image_dir, exist_ok=True)
+    ids = [f'{i + 1:06d}.jpg' for i in range(n)]
+    encode_s = 0.0
+    for i, name in enumerate(ids):
+        img = rng.randint(0, 256, (height, width, 3), dtype=np.uint8)
+        for j in range(n_attr):
+            r, c = divmod(j, g)
+            cell = img[r * ph:(r + 1) * ph, c * pw:(c + 1) * pw]
+            cell[...] = (np.minimum(cell // 2 + 160, 255) if on[i, j]
+                         else cell // 4)
+        t = time.perf_counter()
+        PIL.Image.fromarray(img).save(os.path.join(image_dir, name),
+                                      quality=quality)
+        encode_s += time.perf_counter() - t
+    with open(os.path.join(root, 'list_attr_celeba.csv'), 'w') as f:
+        f.write('image_id,' + ','.join(CELEBA_LABELS) + '\n')
+        for name, row in zip(ids, on):
+            f.write(name + ',' + ','.join('1' if v else '-1' for v in row)
+                    + '\n')
+    with open(os.path.join(root, 'list_eval_partition.csv'), 'w') as f:
+        f.write('image_id,partition\n')
+        for i, name in enumerate(ids):
+            part = 0 if i < n_train else (1 if i < n_train + n_valid else 2)
+            f.write(f'{name},{part}\n')
+    return {'train': n_train, 'valid': n_valid, 'test': n_test,
+            'encode_s': encode_s}

@@ -81,17 +81,21 @@ class CheckpointManager:
             if s not in keep:
                 self.delete(s)
 
-    def restore(self, state: TrainState,
-                step: Optional[int] = None) -> TrainState:
-        """Load a checkpoint into `state` (in place): the best one unless a
-        step is given."""
+    def load(self, step: Optional[int] = None) -> dict:
+        """A checkpoint's TrainState state_dict, on the CPU: the best one
+        unless a step is given."""
         if step is None:
             step = self.best_step()
         if step is None:
             raise FileNotFoundError(f'no checkpoint in {self.directory}')
-        sd = torch.load(os.path.join(self._dir(step), _STATE),
-                        map_location='cpu', weights_only=True)
-        state.load_state_dict(sd)
+        return torch.load(os.path.join(self._dir(step), _STATE),
+                          map_location='cpu', weights_only=True)
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """Load a checkpoint into `state` (in place): the best one unless a
+        step is given."""
+        state.load_state_dict(self.load(step))
         return state
 
     def delete(self, step: int):

@@ -121,3 +121,32 @@ def test_the_bf16_check_catches_a_dropped_bias(monkeypatch):
     worst, failed = _card_vs_cpu(monkeypatch, bf16=_bias_dropped)
     assert failed and all('disagree' in f for f in failed), failed
     assert worst['metrics'] > chip_smoke.BF16_TOL['metrics']
+
+
+def test_celeba_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
+    """Phases 16-22 end to end on the CPU at a tiny corpus (64/16/16 JPEGs,
+    batch 8: the same launch counts as 2,048/512/512 at 256). On the CPU
+    the wrappers take the plain versions and count nothing, so the test
+    counts each call where the card would launch."""
+    import gltvae_torch.train.steps as ts
+    monkeypatch.setattr(chip_smoke, 'BATCH', 8)
+    monkeypatch.setattr(chip_smoke, 'CORPUS', (64, 16, 16))
+    monkeypatch.setattr(chip_smoke, 'ROOT', str(tmp_path))
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a, **k: None)
+    dq, aug = preprocess.dequant, preprocess._augment
+
+    def counted_dequant(u8, *a, **k):
+        preprocess.launches += 1
+        return dq(u8, *a, **k)
+
+    def counted_augment(*a, **k):
+        preprocess.augment_launches += 1
+        return aug(*a, **k)
+    monkeypatch.setattr(preprocess, 'dequant', counted_dequant)
+    monkeypatch.setattr(ts, 'dequant', counted_dequant)
+    monkeypatch.setattr(preprocess, '_augment', counted_augment)
+    out = chip_smoke.celeba_phases(torch.device('cpu'), 'cpu')
+    assert (out['celeba'], out['celeba_augment'], out['device_resize'],
+            out['infer']) == ((22, 0), (6, 4), (12, 0), 2)
+    assert {'pil 64px 1 thread', 'cv2 full 1 thread'} <= set(
+        out['decode_rates'])

@@ -71,3 +71,24 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
                   '--sup', '1.0', '--output-dir', str(tmp_path)])
     assert Trainer(cfg, TrainConfig(), device='cpu').device.type == 'cpu'
     assert resolve_device('cpu') == torch.device('cpu')
+
+
+@pytest.mark.parametrize('module', [
+    'gltvae_torch.data.pipeline', 'gltvae_torch.data.celeba',
+    'gltvae_torch.data.native_loader', 'gltvae_torch.ops.gating',
+    'gltvae_torch.eval.analysis', 'gltvae_torch.infer', 'gltvae_torch.cli'])
+def test_data_layer_and_infer_import_alone(module):
+    """Each module of the data layer and batch inference, imported alone in
+    a fresh interpreter, loads no JAX and nothing of gltvae; nothing is
+    built at import (the native pool builds on first use)."""
+    assert module in MODULES
+    code = (f'import importlib, sys; importlib.import_module({module!r})\n'
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f'{sorted(FORBIDDEN)!r})\n'
+            'from gltvae_torch.data import native_loader as n\n'
+            'assert n._lib is None\n'
+            'assert not bad, bad\n')
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
