@@ -67,7 +67,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     trains 1 epoch;
 22. ``gltvae_torch.infer`` labels the 512 test images from phase 18's run
     folder on the card (2 dequant launches) and on the CPU: probabilities
-    within 1e-4, a second card run writes the same CSV.
+    within 1e-4, a second card run writes the same CSV;
+23. the latent traversal of phase 18's model, every latent dim (45 x 8
+    images) from z = 0 and the render CLI's z_classify grid from the prior
+    anchor, card vs CPU within 1e-5, each timed; the render CLI's PNG;
+24. where h5py exists: ``export_h5`` of phase 18's run, ``infer`` from the
+    .h5 folder (2 dequant launches, phase 22's CSV byte for byte), and
+    ``cli --init-from-h5`` test-only (the checkpoint's params bit for bit,
+    2 dequant launches);
+25. ``export_serving --with-reconstruct``; the reloaded program within
+    1e-5 of ``predict_probs`` at b = 256 and 7, the reconstruct program's
+    shape; program and eager rates at b = 256;
+26. ``preprocess_batch`` at (256, 64, 64, 3) and (256, 128, 128, 3) with
+    mean/std and a flip mask: card bit-equal to the CPU, one multiply-form
+    dequant launch a call.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Run artifacts go to build/chip_smoke*/.
@@ -751,6 +764,218 @@ def celeba_phases(dev, smi):
           f'{n_test / cpu["wall"]:.1f} img/s (decode, 8 threads, '
           f'included); card {smi}', flush=True)
     out['infer'] = card['launches']
+    # what phases 23-26 take from these
+    out.update(corpus=corpus, test_dir=test_dir, run_dir=r18['dir'],
+               infer_csv=card['bytes'],
+               test_acc=r18['result']['test_accuracy'])
+    return out
+
+
+def median_ms(fn, dev, warmup=3, calls=20):
+    """Median synchronized wall of `calls` calls of fn after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        sync(dev)
+        t = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def serving_phases(dev, smi, celeba):
+    """Phases 23-26 on phase 18's run folder (the CelebA-64 model trained
+    from files): the latent traversal, the .h5 interchange and warm start,
+    the serving artifacts and preprocess_batch. Returns the dequant
+    launches of the .h5 inference, the warm start and preprocess_batch."""
+    import numpy as np
+    import torch
+    from gltvae_torch import cli, export_h5, export_serving, infer, render
+    from gltvae_torch.eval.traversal import make_traversal_fn
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.checkpoint import CheckpointManager
+    from gltvae_torch.train.loop import Trainer
+    from gltvae_torch.utils import serving
+    build = os.path.join(ROOT, 'build')
+    run_dir, cpu = celeba['run_dir'], torch.device('cpu')
+    out = {}
+
+    # ------------------------------------------------------------- 23
+    ns = infer.parse_args(['--checkpoint', run_dir, '--images', '.'])
+    cfg = infer.resolve_model_config(ns)
+    models = {d: infer.load_model(ns, cfg, d) for d in (dev, cpu)}
+    fns = {}
+    for d, m in models.items():
+        full = make_traversal_fn(m)                 # every latent dim
+        z0 = torch.zeros(cfg.z_dim, device=d)
+        fns[d] = {'all dims, z=0': lambda f=full, z=z0: f(z),
+                  'z_classify, prior': lambda m=m: render.traversal(
+                      m, anchor='prior')}
+    gaps, ms = {}, {}
+    for name, fn in fns[dev].items():
+        got, want = fn().cpu(), fns[cpu][name]()
+        check(got.shape == want.shape and torch.isfinite(got).all()
+              and got.shape[2:] == (cfg.image_size, cfg.image_size, 3),
+              f'traversal {name}: shape {tuple(got.shape)}')
+        gaps[name] = (tuple(got.shape), float((got - want).abs().max()))
+        ms[name] = median_ms(fn, dev)
+    check(gaps['all dims, z=0'][0][:2] == (cfg.z_dim, 8)
+          and gaps['z_classify, prior'][0][:2] == (cfg.z_classify, 8),
+          f'traversal grids {gaps}')
+    check(all(g <= 1e-5 for _, g in gaps.values()),
+          f'traversal card vs CPU over 1e-5: {gaps}')
+    png = os.path.join(build, 'chip_smoke_traversal.png')
+    render.main(['--mode', 'traversal', '--anchor', 'prior', '--checkpoint',
+                 run_dir, '--out', png, '--device', str(dev)])
+    from PIL import Image
+    png_shape = np.asarray(Image.open(png)).shape
+    check(png_shape == (cfg.z_classify * cfg.image_size,
+                        8 * cfg.image_size, 3), f'render PNG {png_shape}')
+    phase(23, f'traversal on the card and the CPU from the phase-18 '
+              f'weights: ' + '; '.join(
+                  f'{k} {s[0] * s[1]} images, max abs {g:.3e}'
+                  for k, (s, g) in gaps.items())
+          + f' (tol 1e-5); render PNG {png_shape}')
+    print('slice_traversal: ' + '; '.join(
+        f'{k} {gaps[k][0][0] * gaps[k][0][1]} images {v:.3f} ms per grid'
+        for k, v in ms.items())
+        + f' (median of 20 synchronized calls after 3); card {smi}',
+        flush=True)
+
+    # ------------------------------------------------------------- 24
+    try:
+        import h5py
+        has_h5py = f'h5py {h5py.__version__}'
+    except ImportError:
+        has_h5py = None
+    out['infer_h5'] = out['warm_start'] = None
+    if has_h5py is None:
+        phase(24, 'skipped: no h5py')
+    else:
+        h5_dir = os.path.join(build, 'chip_smoke_h5')
+        shutil.rmtree(h5_dir, ignore_errors=True)
+        export_h5.main(['--checkpoint', run_dir, '--out', h5_dir,
+                        '--device', str(dev)])
+        csv_path = os.path.join(build, 'chip_smoke_infer_h5.csv')
+        sync(dev)
+        preprocess.launches = 0
+        infer.main(['--checkpoint', h5_dir, '--images', celeba['test_dir'],
+                    '--output', csv_path, '--batch-size', str(BATCH),
+                    '--num-workers', '8', '--device', str(dev)])
+        sync(dev)
+        out['infer_h5'] = preprocess.launches
+        check(out['infer_h5'] == 2, f'.h5 inference: {out["infer_h5"]} '
+              'dequant launches, expected 2')
+        check(open(csv_path, 'rb').read() == celeba['infer_csv'],
+              'inference from the .h5 folder wrote another CSV than '
+              'phase 22')
+        seen = []
+        undo = patched(Trainer, 'test', lambda f: lambda self, loader: (
+            seen.append({k: v.detach().cpu().clone() for k, v in
+                         self.model.state_dict().items()}),
+            f(self, loader))[1])
+        warm_dir = os.path.join(build, 'chip_smoke_warm_start')
+        shutil.rmtree(warm_dir, ignore_errors=True)
+        try:
+            sync(dev)
+            preprocess.launches = 0
+            res = cli.main(['--data-dir', celeba['corpus'], '--split-file',
+                            'list_eval_partition.csv', '--sup', '0.5', '-bs',
+                            str(BATCH), '--num-workers', '8', '--output-dir',
+                            warm_dir, '--init-from-h5', h5_dir,
+                            '--device', str(dev)])
+            sync(dev)
+            out['warm_start'] = preprocess.launches
+        finally:
+            undo()
+        best = CheckpointManager(os.path.join(run_dir, 'checkpoints')
+                                 ).load()['params']
+        check(len(seen) == 1 and seen[0].keys() == best.keys()
+              and all(torch.equal(seen[0][k], v) for k, v in best.items()),
+              'the warm start did not test the checkpoint\'s params '
+              'bit for bit')
+        check(out['warm_start'] == 2, f'warm start test-only: '
+              f'{out["warm_start"]} dequant launches, expected 2')
+        check(math.isfinite(res[0.5]), f'warm start test acc {res[0.5]}')
+        phase(24, f'{has_h5py}: export_h5 of the phase-18 run; infer from '
+                  f'the .h5 folder: dequant launches {out["infer_h5"]}, CSV '
+                  f'byte-equal to phase 22\'s; cli --init-from-h5 '
+                  f'test-only: params bit-equal to the checkpoint, dequant '
+                  f'launches {out["warm_start"]}, test acc {res[0.5]:.4f} '
+                  f'(phase 18 {celeba["test_acc"]:.4f}; other eval draws)')
+
+    # ------------------------------------------------------------- 25
+    art = os.path.join(build, 'chip_smoke_serving.pt2')
+    export_serving.main(['--checkpoint', run_dir, '--output', art,
+                         '--with-reconstruct', '--device', str(dev)])
+    program = serving.load_serving(art)
+    recon = serving.load_serving(art + '.recon')
+    predict = infer.make_predict(models[dev], stochastic=False, temp=1.0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    S = cfg.image_size
+    errs, inputs = {}, {}
+    for b in (BATCH, 7):
+        u8 = torch.randint(0, 256, (b, S, S, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+        inputs[b] = u8
+        got, want = program(u8), predict(u8)
+        check(got.shape == want.shape == (b, cfg.y_dim),
+              f'serving b={b}: {tuple(got.shape)}')
+        errs[b] = float((got - want).abs().max())
+        rec = recon(u8)
+        check(rec.shape == u8.shape, f'reconstruct program gave '
+              f'{tuple(rec.shape)} for {tuple(u8.shape)}')
+    check(all(e <= 1e-5 for e in errs.values()),
+          f'serving program vs predict_probs over 1e-5: {errs}')
+    prog_ms = median_ms(lambda: program(inputs[BATCH]), dev)
+    eager_ms = median_ms(lambda: predict(inputs[BATCH]), dev)
+    phase(25, f'export_serving --with-reconstruct; the reloaded program vs '
+              f'predict_probs(deterministic) over the divide-form dequant: '
+              + ', '.join(f'b={b} max abs {e:.3e}' for b, e in errs.items())
+              + ' (tol 1e-5); reconstruct output shape = input shape')
+    print(f'slice_serving: loaded program {BATCH / prog_ms * 1e3:.0f} img/s '
+          f'({prog_ms:.3f} ms), eager predict_probs '
+          f'{BATCH / eager_ms * 1e3:.0f} img/s ({eager_ms:.3f} ms) at '
+          f'b={BATCH} (median of 20 synchronized calls after 3); card {smi}',
+          flush=True)
+
+    # ------------------------------------------------------------- 26
+    norm = dict(mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225))
+    g = torch.Generator().manual_seed(26)
+    cases = []
+    for size in (64, 128):
+        u8 = torch.randint(0, 256, (BATCH, size, size, 3), dtype=torch.uint8,
+                           generator=g)
+        cases.append((u8, torch.rand(BATCH, generator=g) < 0.5))
+    modes = []
+    undo = patched(preprocess, 'dequant', lambda f: lambda u8, mode='div',
+                   *a: (modes.append(mode), f(u8, mode, *a))[1])
+    try:
+        on_card = [(u8.to(dev), m.to(dev)) for u8, m in cases]
+        sync(dev)
+        preprocess.launches = 0
+        got = [preprocess.preprocess_batch(u8, flip=True, flip_mask=m,
+                                           **norm) for u8, m in on_card]
+        sync(dev)
+        out['preprocess_batch'] = preprocess.launches
+        card_modes = list(modes)
+        want = [preprocess.preprocess_batch(u8, flip=True, flip_mask=m,
+                                            **norm) for u8, m in cases]
+    finally:
+        undo()
+    check(out['preprocess_batch'] == 2 and card_modes == ['mul', 'mul'],
+          f'preprocess_batch: {out["preprocess_batch"]} dequant launches in '
+          f'modes {card_modes}, expected 2 multiply-form')
+    for (u8, m), a, b in zip(cases, got, want):
+        check(torch.equal(a.cpu(), b), f'preprocess_batch {tuple(u8.shape)}: '
+              f'card != CPU (max {float((a.cpu() - b).abs().max())})')
+        check(0 < int(m.sum()) < BATCH, 'the flip mask has one kind')
+    phase(26, f'preprocess_batch (mul-form dequant, ImageNet mean/std, '
+              f'injected flip mask) at {[tuple(u8.shape) for u8, _ in cases]}'
+              f': card bit-equal to the CPU, dequant launches '
+              f'{out["preprocess_batch"]} (one a call)')
     return out
 
 
@@ -1261,6 +1486,9 @@ def main():
     # ---------------------------------------------------------- 16-22
     celeba = celeba_phases(dev, smi)
 
+    # ---------------------------------------------------------- 23-26
+    served = serving_phases(dev, smi, celeba)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -1284,6 +1512,11 @@ def main():
         'launches_celeba_augment': celeba['celeba_augment'][0],
         'launches_device_resize': celeba['device_resize'][0],
         'launches_infer': celeba['infer'],
+        # phases 24 and 26: inference from the .h5 folder, the warm
+        # start's test (null where h5py is absent), preprocess_batch
+        'launches_infer_h5': served['infer_h5'],
+        'launches_warm_start': served['warm_start'],
+        'launches_preprocess_batch': served['preprocess_batch'],
     }, {
         'name': 'augment',
         'route': 'cuda',

@@ -16,9 +16,10 @@ folder under ``--data-dir``: ``img_align_celeba/``, ``list_attr_celeba.csv``
 and, with ``--split-file``, the partition file; or the synthetic fixture),
 trains and/or tests a Trainer, and writes ``model_config.json``,
 ``metrics.csv``, checkpoints, the μ export and ``result.json`` under
-``<output-dir>/<run name>``. It takes the subset of train.py's flags that
-the port supports (not yet: ``--tensorboard``, ``--mesh``,
-``--init-from-h5``, the grain backend).
+``<output-dir>/<run name>``. ``--init-from-h5 DIR`` starts from a
+reference-format .h5 checkpoint folder; without ``--do-train`` it tests
+those weights. It takes the subset of train.py's flags that the port
+supports (not yet: ``--tensorboard``, ``--mesh``, the grain backend).
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ def parse_args(argv=None):
     p.add_argument('--posterior-locs', default='relu',
                    choices=['relu', 'linear'])
     p.add_argument('--deterministic-eval', action='store_true')
+    p.add_argument('--init-from-h5', default=None, metavar='DIR',
+                   help='warm-start from a reference-format .h5 checkpoint '
+                        'folder (utils/h5_import); where it has no '
+                        'learned_gating_matrix .npy, mu is the identity '
+                        'for fixed one-one gating, else the computed init')
     p.add_argument('--resume', action='store_true',
                    help='resume from the latest checkpoint if one exists')
     p.add_argument('--augment-pad', type=int, default=0, metavar='P',
@@ -240,6 +246,22 @@ def run(args, sup: float):
     if args.do_train or recorded is None:
         save_model_config(model_cfg, param_dir)
 
+    if args.init_from_h5:
+        from gltvae_torch.utils.h5_import import load_reference_checkpoint
+        # a fixed-gate .h5 folder carries no μ .npy; the fallback follows
+        # the gate scheme (one-one is the identity, not the co-occurrence
+        # init)
+        if model_cfg.gate_type == 'fixed' and \
+                model_cfg.gate_subtype == 'one-one':
+            from gltvae_torch.ops.gating import identity_gating_matrix
+            fallback_mu = identity_gating_matrix(model_cfg.z_classify,
+                                                 model_cfg.y_dim)
+        else:
+            fallback_mu = mu_init
+        trainer.load_params(load_reference_checkpoint(args.init_from_h5,
+                                                      mu=fallback_mu))
+        logger.info('warm-started from %s', args.init_from_h5)
+
     result = None
     if args.do_train:
         result = trainer.train(loaders, param_dir=param_dir,
@@ -248,10 +270,16 @@ def run(args, sup: float):
                     result['best_val_accuracy'], result['images_per_sec'])
     acc = None
     if args.do_test:
-        try:
-            trainer.restore()      # the best checkpoint
-        except FileNotFoundError:
-            logger.warning('no checkpoint to restore; testing fresh init')
+        if args.init_from_h5 and not args.do_train:
+            # the user asked for exactly these weights: a checkpoint left
+            # in param_dir by an earlier run must not replace them
+            logger.info('testing the --init-from-h5 weights directly')
+        else:
+            try:
+                trainer.restore()      # the best checkpoint
+            except FileNotFoundError:
+                logger.warning('no checkpoint to restore; testing fresh '
+                               'init')
         acc = trainer.test(loaders['test'])
         logger.info('Test Accuracy (best model): %.3f', acc)
     _write_result_json(param_dir, result, acc, str(trainer.device))

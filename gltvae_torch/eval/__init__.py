@@ -1,1 +1,1 @@
-"""Analysis of a trained model's gating matrix."""
+"""Analysis of a trained model's gating matrix and the latent traversal."""

@@ -4,10 +4,15 @@ predictions out (counterpart of tools/infer.py).
     python -m gltvae_torch.infer --checkpoint runs/torch/params_0.5_learnable \\
         --images photos/ --output preds.csv [--model-id best|last] \\
         [--batch-size 256] [--stochastic --temp 0.3] [--device cuda|cpu]
+    python -m gltvae_torch.infer --checkpoint <reference .h5 folder> \\
+        --images photos/ [--mu gating_matrix.npy]
 
-``--checkpoint`` is a run folder of the port's CLI: ``checkpoints/`` and
-``model_config.json`` (without the latter the model comes from the
-``--image-size``/``--gate-type``/``--gate-subtype``/``--z-dim`` flags). The
+``--checkpoint`` is a run folder of the port's CLI (``checkpoints/`` and
+``model_config.json``) or a reference-format folder of ``*_<model-id>.h5``
+files (``utils/h5_import``; ``--mu`` gives μ where it has no
+``learned_gating_matrix`` .npy, as a fixed-gate folder has not). Without
+``model_config.json`` the model comes from the
+``--image-size``/``--gate-type``/``--gate-subtype``/``--z-dim`` flags. The
 folder's jpg/jpeg/png files, sorted by name, are decoded as training
 decodes them (a direct resize at 64 px, a center crop at 128 px) on
 ``--num-workers`` threads, and each batch goes through the dequant kernel's
@@ -16,8 +21,7 @@ mean and expected gates by default, sampled z and gates at ``--temp`` with
 ``--stochastic``. The CSV has ``image_id``, one 0/1 column per attribute
 (1 iff p > 0.5) and one ``p_<attribute>`` column (``%.4f``).
 
-Not ported: ``--mesh`` (ROADMAP Queue 1 item 12) and reference-format .h5
-checkpoints with ``--mu`` (item 11).
+Not ported: ``--mesh`` (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ def parse_args(argv=None):
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument('--checkpoint', required=True,
                    help='run folder of the port (checkpoints/, '
-                        'model_config.json)')
+                        'model_config.json) or a reference-format folder '
+                        'of *_best.h5 files')
     p.add_argument('--model-id', default='best', choices=['best', 'last'])
     p.add_argument('--images', required=True,
                    help='directory of JPEG/PNG images')
@@ -59,6 +64,9 @@ def parse_args(argv=None):
                         'default: posterior mean and expected gates')
     p.add_argument('--temp', type=float, default=0.3,
                    help='gating temperature for --stochastic')
+    p.add_argument('--mu', default=None,
+                   help='gating-matrix .npy for .h5 folders that store no '
+                        'learned_gating_matrix (fixed gate schemes)')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--mesh', action='store_true',
                    help='not ported (ROADMAP Queue 1 item 12)')
@@ -95,25 +103,28 @@ def resolve_model_config(args):
 
 
 def load_model(args, cfg, device):
-    """The CCVAE of `cfg` on `device` with the run folder's best (or last)
-    checkpoint's parameters."""
+    """The CCVAE of `cfg` on `device` with the best (or last) parameters
+    of a port run folder or of a reference-format .h5 folder."""
     from gltvae_torch.config import apply_precision
     from gltvae_torch.models.ccvae import CCVAE
     from gltvae_torch.train.checkpoint import CheckpointManager
     apply_precision(cfg)        # TF32 off, as in training
     ckpt_dir = os.path.join(args.checkpoint, 'checkpoints')
-    if not os.path.isdir(ckpt_dir):
-        if glob.glob(os.path.join(args.checkpoint, '*.h5')):
-            raise NotImplementedError(
-                'reference-format .h5 checkpoints: ROADMAP Queue 1 item 11 '
-                '(interchange); pass a run folder of gltvae_torch.cli')
-        raise SystemExit(f'{args.checkpoint} has no checkpoints/ folder')
-    mgr = CheckpointManager(ckpt_dir)
-    step = mgr.latest_step() if args.model_id == 'last' else None
-    sd = mgr.load(step)
+    if os.path.isdir(ckpt_dir):
+        mgr = CheckpointManager(ckpt_dir)
+        step = mgr.latest_step() if args.model_id == 'last' else None
+        params = mgr.load(step)['params']
+    elif glob.glob(os.path.join(args.checkpoint, f'*_{args.model_id}.h5')):
+        from gltvae_torch.utils.h5_import import load_reference_checkpoint
+        mu = np.load(args.mu) if getattr(args, 'mu', None) else None
+        params = load_reference_checkpoint(args.checkpoint, args.model_id,
+                                           mu=mu)
+    else:
+        raise SystemExit(f'{args.checkpoint} has no checkpoints/ folder '
+                         f'and no *_{args.model_id}.h5 files')
     model = CCVAE(cfg, mu_init=np.eye(cfg.z_classify, cfg.y_dim,
                                       dtype=np.float32))
-    model.load_state_dict(sd['params'])
+    model.load_state_dict(params)
     return model.to(device).eval()
 
 

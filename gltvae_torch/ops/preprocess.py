@@ -8,6 +8,9 @@ and every eval step runs. Two forms, both exactly rounded:
 - ``mode='div'``: ``v / 255.0``, the main-path form (``_as_f32_image``);
 - ``mode='mul'``: ``v * scale``, what ``normalize_images`` computes.
 They differ in the last ulp for 126 of the 256 byte values.
+``preprocess_batch`` runs the multiply form, then an optional per-channel
+standardization and horizontal flip, as the JAX package's function of that
+name.
 
 **Augment**, uint8 (..., H, W, C) + per-image (dy, dx, flip) -> float32
 (..., S, S, C): the S x S crop at (dy, dx), columns mirrored where flip > 0,
@@ -34,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -157,6 +160,37 @@ def dequant(u8: torch.Tensor, mode: str = 'div',
             int(plan.dst_vec), _MODES[mode], scale)
     launches += 1
     return out
+
+
+def preprocess_batch(u8: torch.Tensor, flip: bool = False,
+                     flip_mask: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     mean: Optional[Sequence[float]] = None,
+                     std: Optional[Sequence[float]] = None) -> torch.Tensor:
+    """uint8 (B, H, W, C) -> float32: the dequant kernel's multiply form
+    (as ``gltvae``'s Pallas kernel), then per channel (x - mean) / std
+    (std defaults to ones), then with `flip` each image mirrored left to
+    right where ``flip_mask`` (B,) bool is set. Without a mask the flips
+    are fair coins drawn from `generator`; `flip` with neither raises.
+    Counterpart of gltvae/ops/pallas/preprocess.py::preprocess_batch."""
+    x = dequant(u8, 'mul')
+    if mean is not None:
+        # tensors, not Python scalars: CUDA would turn / std into a
+        # multiply by its reciprocal
+        m = torch.tensor(mean, dtype=torch.float32, device=x.device)
+        s = torch.tensor(std or (1.0,) * len(mean), dtype=torch.float32,
+                         device=x.device)
+        x = (x - m) / s
+    if flip:
+        if flip_mask is None:
+            if generator is None:
+                raise ValueError('flip=True requires a flip_mask or a '
+                                 'generator')
+            flip_mask = torch.rand(x.shape[0], generator=generator,
+                                   device=generator.device) < 0.5
+        x = torch.where(flip_mask.to(x.device)[:, None, None, None],
+                        x.flip(2), x)
+    return x
 
 
 # ------------------------------ augment ------------------------------

@@ -10,7 +10,6 @@ with no step returns the best state and a resume finds the latest.
 
 from __future__ import annotations
 
-import csv
 import json
 import os
 import shutil
@@ -19,6 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from gltvae_torch.ops.gating import save_labeled_csv
 from gltvae_torch.train.state import TrainState
 
 _STATE = 'state.pt'
@@ -105,15 +105,12 @@ class CheckpointManager:
 def export_gating_matrix(mu, param_dir: str, model_id: str,
                          label_names: Sequence[str]):
     """learned_gating_matrix_{id}.npy and a labeled .csv (rows z1..zN,
-    attribute-name columns), the reference's gated_ccvae.py:395-401."""
+    attribute-name columns), the reference's gated_ccvae.py:395-401; both
+    files byte-equal to the JAX package's."""
     os.makedirs(param_dir, exist_ok=True)
     if isinstance(mu, torch.Tensor):
         mu = mu.detach().cpu().numpy()
     mu = np.asarray(mu)
     stem = os.path.join(param_dir, f'learned_gating_matrix_{model_id}')
     np.save(stem + '.npy', mu)
-    with open(stem + '.csv', 'w', newline='') as f:
-        w = csv.writer(f)
-        w.writerow([''] + list(label_names))
-        for i, row in enumerate(mu):
-            w.writerow([f'z{i + 1}'] + [repr(float(v)) for v in row])
+    save_labeled_csv(mu, label_names, stem + '.csv')

@@ -153,6 +153,17 @@ class Trainer:
             return preprocess.fused_augment_stacked(u8, gens, size)
         return preprocess.fused_augment(u8, gens[0], size)
 
+    @torch.no_grad()
+    def load_params(self, state_dict) -> None:
+        """Swap in parameters loaded elsewhere (e.g. a reference .h5
+        checkpoint through utils/h5_import), copied in place onto the
+        Trainer's device. The step, the Adam moments and count stay; a
+        frozen μ (fixed gate schemes) takes the loaded value and stays
+        frozen. Called on a new Trainer, this is a warm start with fresh
+        moments, as the reference's: it cannot resume its optimizer
+        either."""
+        self.model.load_state_dict(state_dict, strict=True)
+
     # ------------------------------ schedule ------------------------------
     def epoch_schedule(self, loaders) -> tuple[int, int, int]:
         """(batches_per_epoch, period_sup_batches, sup_batches)."""

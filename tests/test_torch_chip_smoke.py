@@ -123,11 +123,11 @@ def test_the_bf16_check_catches_a_dropped_bias(monkeypatch):
     assert worst['metrics'] > chip_smoke.BF16_TOL['metrics']
 
 
-def test_celeba_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
-    """Phases 16-22 end to end on the CPU at a tiny corpus (64/16/16 JPEGs,
+def _rehearse(monkeypatch, tmp_path):
+    """Set chip_smoke up to run on the CPU at a tiny corpus (64/16/16 JPEGs,
     batch 8: the same launch counts as 2,048/512/512 at 256). On the CPU
-    the wrappers take the plain versions and count nothing, so the test
-    counts each call where the card would launch."""
+    the wrappers take the plain versions and count nothing, so each call
+    where the card would launch is counted here."""
     import gltvae_torch.train.steps as ts
     monkeypatch.setattr(chip_smoke, 'BATCH', 8)
     monkeypatch.setattr(chip_smoke, 'CORPUS', (64, 16, 16))
@@ -145,8 +145,30 @@ def test_celeba_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(preprocess, 'dequant', counted_dequant)
     monkeypatch.setattr(ts, 'dequant', counted_dequant)
     monkeypatch.setattr(preprocess, '_augment', counted_augment)
-    out = chip_smoke.celeba_phases(torch.device('cpu'), 'cpu')
+    return chip_smoke.celeba_phases(torch.device('cpu'), 'cpu')
+
+
+def test_celeba_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
+    """Phases 16-22 end to end on the CPU at a tiny corpus."""
+    out = _rehearse(monkeypatch, tmp_path)
     assert (out['celeba'], out['celeba_augment'], out['device_resize'],
             out['infer']) == ((22, 0), (6, 4), (12, 0), 2)
     assert {'pil 64px 1 thread', 'cv2 full 1 thread'} <= set(
         out['decode_rates'])
+
+
+def test_serving_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phases 23-26 on the CPU from phase 18's tiny run: the .h5 inference,
+    the warm start's test and preprocess_batch launch where the card
+    would (2 test batches, 2 preprocess_batch calls), and each phase's
+    check passes; the timing loops run one call each."""
+    celeba = _rehearse(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'median_ms',
+                        lambda fn, dev, warmup=3, calls=20: (fn(), 1.0)[1])
+    out = chip_smoke.serving_phases(torch.device('cpu'), 'cpu', celeba)
+    assert out == {'infer_h5': 2, 'warm_start': 2, 'preprocess_batch': 2}
+    printed = capsys.readouterr().out
+    for n in (23, 24, 25, 26):
+        assert f'[phase {n}]' in printed
+    assert 'slice_traversal:' in printed and 'slice_serving:' in printed
+    assert 'skipped' not in printed.split('[phase 24]')[1].split('\n')[0]

@@ -76,15 +76,22 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
 @pytest.mark.parametrize('module', [
     'gltvae_torch.data.pipeline', 'gltvae_torch.data.celeba',
     'gltvae_torch.data.native_loader', 'gltvae_torch.ops.gating',
-    'gltvae_torch.eval.analysis', 'gltvae_torch.infer', 'gltvae_torch.cli'])
+    'gltvae_torch.eval.analysis', 'gltvae_torch.infer', 'gltvae_torch.cli',
+    'gltvae_torch.eval.traversal', 'gltvae_torch.utils.h5_import',
+    'gltvae_torch.utils.h5_export', 'gltvae_torch.utils.serving',
+    'gltvae_torch.render', 'gltvae_torch.export_h5',
+    'gltvae_torch.export_serving', 'gltvae_torch.ops.preprocess'])
 def test_data_layer_and_infer_import_alone(module):
-    """Each module of the data layer and batch inference, imported alone in
-    a fresh interpreter, loads no JAX and nothing of gltvae; nothing is
-    built at import (the native pool builds on first use)."""
+    """Each module of the data layer, batch inference, interchange and
+    serving, imported alone in a fresh interpreter with JAX and gltvae
+    blocked (importing them raises), loads none of them; nothing is built
+    at import (the native pool builds on first use)."""
     assert module in MODULES
-    code = (f'import importlib, sys; importlib.import_module({module!r})\n'
+    block = ''.join(f'sys.modules[{m!r}] = None\n' for m in sorted(FORBIDDEN))
+    code = ('import sys\n' + block +
+            f'import importlib; importlib.import_module({module!r})\n'
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            f'{sorted(FORBIDDEN)!r})\n'
+            f'{sorted(FORBIDDEN)!r} and sys.modules[m] is not None)\n'
             'from gltvae_torch.data import native_loader as n\n'
             'assert n._lib is None\n'
             'assert not bad, bad\n')
