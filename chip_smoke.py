@@ -80,7 +80,18 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     shape; program and eager rates at b = 256;
 26. ``preprocess_batch`` at (256, 64, 64, 3) and (256, 128, 128, 3) with
     mean/std and a flip mask: card bit-equal to the CPU, one multiply-form
-    dequant launch a call.
+    dequant launch a call;
+27. ``cli.main`` on the synthetic path for 2 epochs, once plain and once
+    with ``--tensorboard DIR --debug-nans``: the same dequant launches,
+    the event file's tags, steps and values equal to metrics.csv's rows as
+    f32, both step medians; then one step with a NaN encoder weight under
+    the flag must raise FloatingPointError naming an aten op;
+28. ``cli.main --decode-backend grain`` from phase 16's corpus for 1 epoch
+    (the port's own permutation): dequant launches, the epoch wall, each
+    loader's first epoch a permutation of its split;
+29. ``python -m gltvae_torch.bench`` at reduced sizes (10 chunks of 4
+    steps, eval over 2,048 images, e2e over 512 JPEGs): its JSON line
+    (printed as ``bench: ...``) with every key bench.py fills set.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Run artifacts go to build/chip_smoke*/.
@@ -979,6 +990,196 @@ def serving_phases(dev, smi, celeba):
     return out
 
 
+def host_phases(dev, smi, celeba):
+    """Phases 27-29: TensorBoard events and --debug-nans through the CLI,
+    the grain backend from phase 16's corpus, and the bench twin at
+    reduced sizes. Returns the dequant launches of each path."""
+    import contextlib
+    import csv
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from gltvae_torch import bench, cli
+    from gltvae_torch.config import default_celeba64
+    from gltvae_torch.data import grain_loader
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.loop import Trainer
+    from gltvae_torch.utils import tb_events
+    build = os.path.join(ROOT, 'build')
+    out = {}
+
+    def run(argv, run_name):
+        """cli.main with the dequant count set to 0 just before and read
+        just after; each dispatch's synchronized wall recorded."""
+        steps = []
+        out_dir = os.path.join(build, run_name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        undo = patched(Trainer, '_resident_chunk',
+                       lambda f: synced(f, steps))
+        try:
+            sync(dev)
+            preprocess.launches = 0
+            t0 = time.perf_counter()
+            res = cli.main([*argv, '-bs', str(BATCH), '--output-dir',
+                            out_dir, '--device', str(dev)])
+            sync(dev)
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        return dict(res=res, launches=preprocess.launches, steps=steps,
+                    wall=wall, dir=os.path.join(out_dir,
+                                                'params_0.5_learnable'))
+
+    # ------------------------------------------------------------- 27
+    n = 8 * BATCH
+    n_eval = max(64, n // 8)
+    synthetic = ['--synthetic', '--synthetic-n', str(n), '--do-train',
+                 '--epochs', '2', '--sup', '0.5']
+    tb_dir = os.path.join(build, 'chip_smoke_tb')
+    shutil.rmtree(tb_dir, ignore_errors=True)
+    plain = run(synthetic, 'chip_smoke_plain_cli')
+    flagged = run(synthetic + ['--tensorboard', tb_dir, '--debug-nans'],
+                  'chip_smoke_debug_nans')
+    want = 2 * (n // BATCH) + 3 * math.ceil(n_eval / BATCH)
+    check(plain['launches'] == flagged['launches'] == want,
+          f'synthetic cli: dequant launches {plain["launches"]} and '
+          f'{flagged["launches"]} under --debug-nans, expected {want}')
+    with open(os.path.join(flagged['dir'], 'metrics.csv'), newline='') as f:
+        rows = list(csv.DictReader(f))
+    events = tb_events.read_scalars(os.path.join(tb_dir,
+                                                 'params_0.5_learnable'))
+    tags = set(rows[0]) - {'step', 'time'}
+    want_events = {t: [(int(r['step']), float(np.float32(float(r[t]))))
+                       for r in rows] for t in tags}
+    check(len(rows) == 2 and events == want_events,
+          f'TensorBoard events {events} != metrics.csv rows as f32 '
+          f'{want_events}')
+    model_cfg, train_cfg = default_celeba64(sup=0.5, batch_size=BATCH)
+    rng = np.random.RandomState(27)
+    trainer = Trainer(model_cfg, train_cfg,
+                      mu_init=np.full((18, 18), 0.5, np.float32),
+                      device=dev, debug_nans=True)
+    with torch.no_grad():
+        trainer.model.encoder.conv1.weight[0, 0, 0, 0] = float('nan')
+    x = torch.from_numpy(rng.randint(0, 256, (BATCH, 64, 64, 3))
+                         .astype(np.uint8)).to(dev)
+    y = torch.from_numpy((rng.rand(BATCH, 18) > 0.5)
+                         .astype(np.float32)).to(dev)
+    try:
+        trainer._sup_step(trainer.state, x, y, 1.0)
+        named = None
+    except FloatingPointError as e:     # the one expected outcome
+        named = str(e)
+    check(named is not None and 'aten.' in named,
+          f'a NaN weight under --debug-nans raised no FloatingPointError '
+          f'naming an aten op ({named})')
+    del trainer
+    med = {k: statistics.median(r['steps'][1:]) * 1e3
+           for k, r in (('plain', plain), ('debug_nans', flagged))}
+    phase(27, f'cli --tensorboard --debug-nans, synthetic {n}, 2 epochs: '
+              f'dequant launches {flagged["launches"]} (as without the '
+              f'flags), test acc {flagged["res"][0.5]:.4f} (without: '
+              f'{plain["res"][0.5]:.4f}); '
+              f'{sum(len(v) for v in events.values())} events of '
+              f'{sorted(tags)} equal to metrics.csv\'s {len(rows)} rows as '
+              f'f32; a NaN encoder weight raised FloatingPointError: '
+              f'{named}')
+    print(f'slice_debug_nans: step_ms median {med["plain"]:.3f} without '
+          f'the flag, {med["debug_nans"]:.3f} with --debug-nans (steps '
+          f'2-16, synchronized); cli walls {plain["wall"]:.2f} s and '
+          f'{flagged["wall"]:.2f} s; card {smi}', flush=True)
+    out['debug_nans'] = flagged['launches']
+
+    # ------------------------------------------------------------- 28
+    batches = {}
+
+    def record(f):
+        def next_batch(self):
+            x, y = f(self)
+            got = batches.setdefault(id(self), (self, []))[1]
+            if len(got) < self.epoch_batches:
+                got.append(x)
+            return x, y
+        return next_batch
+    undo = patched(grain_loader.GrainLoader, 'next_batch', record)
+    try:
+        grain = run(['--data-dir', celeba['corpus'], '--split-file',
+                     'list_eval_partition.csv', '--do-train', '--epochs',
+                     '1', '--sup', '0.5', '--num-workers', '8',
+                     '--decode-backend', 'grain'], 'chip_smoke_grain')
+    finally:
+        undo()
+    n_train, n_valid, n_test = CORPUS
+    want = 2 * (n_train // 2 // BATCH) + 2 * (n_valid // BATCH)
+    check(grain['launches'] == want, f'grain backend: dequant launches '
+          f'{grain["launches"]}, expected {want}')
+    check(len(batches) == 4, f'{len(batches)} grain loaders ran, expected '
+          f'sup, unsup, valid and test')
+    with open(os.path.join(grain['dir'], 'result.json')) as f:
+        hist = json.load(f)['history']
+    for loader, got in batches.values():
+        check(loader.n_s % BATCH == 0 and len(got) == loader.epoch_batches,
+              f'a grain loader of {loader.n_s} rows yielded {len(got)} '
+              f'batches')
+        with ThreadPoolExecutor(8) as pool:
+            decoded = list(pool.map(lambda i, s=loader.source: s[i][0],
+                                    range(loader.n_s)))
+        key = lambda imgs: sorted(im.tobytes() for im in imgs)
+        check(key(np.concatenate(got)) == key(decoded),
+              f'the first epoch of a grain loader of {loader.n_s} rows is '
+              f'not a permutation of its split')
+    phase(28, f'cli --decode-backend grain from the phase-16 corpus (sup '
+              f'0.5, bs {BATCH}, 1 epoch, the port\'s own permutation): '
+              f'dequant launches {grain["launches"]}; each of the 4 '
+              f'loaders\' first epoch is a permutation of its split; test '
+              f'acc {grain["res"][0.5]:.4f}')
+    # the host's cost of the port's permutation at CelebA's train split
+    t0 = time.perf_counter()
+    for epoch in range(3):
+        order = grain_loader.feistel_index_shuffle(np.arange(162770),
+                                                   162769, epoch)
+    perm_s = (time.perf_counter() - t0) / 3
+    check(np.array_equal(np.sort(order), np.arange(162770)),
+          'the permutation of 162,770 indices is not one')
+    print(f'slice_grain: epoch wall {hist[0]["epoch_time"]:.3f} s, cli '
+          f'wall {grain["wall"]:.2f} s; the permutation of 162,770 '
+          f'indices {perm_s:.4f} s an epoch (host CPU); card {smi}',
+          flush=True)
+    out['grain'] = grain['launches']
+
+    # ------------------------------------------------------------- 29
+    argv = ['--batch-size', str(BATCH), '--steps', '10', '--scan', '4',
+            '--eval-images', str(8 * BATCH), '--e2e-train-images',
+            str(2 * BATCH), '--device', str(dev)]
+    text = io.StringIO()
+    sync(dev)
+    preprocess.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = bench.main(argv)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    out['bench'] = preprocess.launches
+    lines = text.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 1, f'bench: rc {rc}, output {lines}')
+    line = json.loads(lines[0])
+    unset = [k for k, v in line.items() if v is None
+             and not (dev.type == 'cpu' and k.startswith('peak_hbm'))]
+    unset += [f'{r}.{k}' for r in ('roofline', 'eval_roofline',
+                                   'eval_roofline_resident')
+              for k in ('step_gflops', 'achieved_tflops_per_sec')
+              if (line[r] or {}).get(k) is None]
+    check(not unset, f'bench: null values {unset}')
+    check(out['bench'] > 0, 'the bench launched no dequant')
+    print('bench: ' + lines[0], flush=True)
+    phase(29, f'python -m gltvae_torch.bench {" ".join(argv)}: every key '
+              f'bench.py fills is set; dequant launches {out["bench"]}; '
+              f'{wall:.1f} s')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1489,6 +1690,9 @@ def main():
     # ---------------------------------------------------------- 23-26
     served = serving_phases(dev, smi, celeba)
 
+    # ---------------------------------------------------------- 27-29
+    host = host_phases(dev, smi, celeba)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -1517,6 +1721,11 @@ def main():
         'launches_infer_h5': served['infer_h5'],
         'launches_warm_start': served['warm_start'],
         'launches_preprocess_batch': served['preprocess_batch'],
+        # phases 27-29: the synthetic CLI run under --tensorboard
+        # --debug-nans, the grain backend, the bench twin
+        'launches_debug_nans': host['debug_nans'],
+        'launches_grain': host['grain'],
+        'launches_bench': host['bench'],
     }, {
         'name': 'augment',
         'route': 'cuda',

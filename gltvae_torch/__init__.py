@@ -12,12 +12,15 @@ Package layout
                             and augment kernels
 - ``gltvae_torch.models``   encoder/decoder/classifier/cond-prior, CCVAE losses
 - ``gltvae_torch.train``    Keras Adam state, steps, Trainer, metrics, checkpoints
-- ``gltvae_torch.data``     in-memory datasets, batch loader, synthetic fixture
+- ``gltvae_torch.data``     in-memory datasets, batch loader, CelebA files, the
+                            grain-ordered loader, synthetic fixtures
 - ``gltvae_torch.eval``     gating analysis, latent traversal
-- ``gltvae_torch.utils``    Keras .h5 import/export, torch.export serving
+- ``gltvae_torch.utils``    Keras .h5 import/export, torch.export serving,
+                            TensorBoard event files, --debug-nans
 - ``gltvae_torch.cli``      ``python -m gltvae_torch.cli`` (train.py counterpart);
                             ``infer``, ``render``, ``export_h5`` and
                             ``export_serving`` are the tools/ counterparts
+- ``gltvae_torch.bench``    ``python -m gltvae_torch.bench`` (bench.py's twin)
 
 Public functions keep the JAX package's NHWC image layout. Entry points run
 on ``cuda`` unless the caller passes ``device='cpu'``; without a CUDA

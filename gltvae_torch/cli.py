@@ -7,7 +7,7 @@
         [--cache-decoded | --cache-dir DIR] [--augment-pad 4] \\
         [--steps-per-dispatch 4] [--image-size 128 --compute-dtype \\
          bfloat16 --input-s2d on --output-s2d on --remat dots] \\
-        [--resident-train off]
+        [--resident-train off] [--tensorboard DIR] [--debug-nans]
     python -m gltvae_torch.cli --synthetic --do-train ...   # no files
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Per supervision fraction
@@ -16,10 +16,13 @@ folder under ``--data-dir``: ``img_align_celeba/``, ``list_attr_celeba.csv``
 and, with ``--split-file``, the partition file; or the synthetic fixture),
 trains and/or tests a Trainer, and writes ``model_config.json``,
 ``metrics.csv``, checkpoints, the μ export and ``result.json`` under
-``<output-dir>/<run name>``. ``--init-from-h5 DIR`` starts from a
+``<output-dir>/<run name>``, and with ``--tensorboard DIR`` scalar events
+under ``DIR/<run name>``. ``--init-from-h5 DIR`` starts from a
 reference-format .h5 checkpoint folder; without ``--do-train`` it tests
-those weights. It takes the subset of train.py's flags that the port
-supports (not yet: ``--tensorboard``, ``--mesh``, the grain backend).
+those weights. ``--debug-nans`` raises FloatingPointError naming the first
+op that made a NaN. It takes train.py's flags but ``--mesh`` and the
+multi-host flags (not ported yet), ``--prng`` and the compilation-cache
+flags; ``--device`` stands for ``--platform``.
 """
 
 from __future__ import annotations
@@ -118,8 +121,9 @@ def parse_args(argv=None):
     p.add_argument('--decode-backend', default='auto',
                    choices=['auto', 'cv2', 'pil', 'native', 'grain'],
                    help="host decode: 'native' = the C++ libjpeg pool (built "
-                        "on first use), 'auto' = cv2 with PIL fallback; "
-                        "'grain' is not ported and raises")
+                        "on first use), 'auto' = cv2 with PIL fallback, "
+                        "'grain' = cv2 decode through the grain-ordered "
+                        'loader (data/grain_loader.py)')
     p.add_argument('--cache-decoded', action='store_true',
                    help='keep every decoded uint8 image in host RAM after '
                         'its first decode')
@@ -137,6 +141,13 @@ def parse_args(argv=None):
                         'list_eval_partition.csv, relative to --data-dir; '
                         '0=train 1=valid 2=test) instead of prefix sizes')
     p.add_argument('--output-dir', default='./models')
+    p.add_argument('--tensorboard', default=None, metavar='DIR',
+                   help='also write TensorBoard scalar events under '
+                        'DIR/<run_name> (CSV metrics are always written)')
+    p.add_argument('--debug-nans', action='store_true',
+                   help='check every train and eval dispatch for NaN and '
+                        'raise FloatingPointError naming the first op that '
+                        "made one (jax_debug_nans' counterpart)")
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -238,10 +249,14 @@ def run(args, sup: float):
     trainer = Trainer(model_cfg, train_cfg, mu_init=mu_init,
                       checkpoint_dir=os.path.join(param_dir, 'checkpoints'),
                       metrics_path=os.path.join(param_dir, 'metrics.csv'),
+                      tensorboard_dir=(os.path.join(args.tensorboard,
+                                                    run_name)
+                                       if args.tensorboard else None),
                       steps_per_dispatch=args.steps_per_dispatch,
                       device=args.device,
                       resident_eval=args.resident_eval,
-                      resident_train=args.resident_train)
+                      resident_train=args.resident_train,
+                      debug_nans=args.debug_nans)
     os.makedirs(param_dir, exist_ok=True)
     if args.do_train or recorded is None:
         save_model_config(model_cfg, param_dir)

@@ -14,10 +14,9 @@ gltvae/data/celeba.py; same data semantics, numpy on the host).
   ``gltvae_torch.data.native_loader``;
 - caches: ``CachedDataset`` in RAM, ``DiskCachedDataset`` as memmaps whose
   file names and keys are the JAX package's, so a cache directory filled
-  by either package serves the other with no decode.
-
-``decode_backend='grain'`` raises NotImplementedError: the grain loader is
-not ported (ROADMAP Queue 1 item 8).
+  by either package serves the other with no decode;
+- ``decode_backend='grain'``: cv2 decode through
+  ``gltvae_torch.data.grain_loader`` (grain's index chain without grain).
 """
 
 from __future__ import annotations
@@ -452,10 +451,27 @@ class CelebAReader:
                                  'input stage)')
             size = size + 2 * self.cfg.augment_pad
         if backend == 'grain':
-            raise NotImplementedError(
-                "decode_backend='grain': the grain loader is not ported "
-                '(ROADMAP Queue 1 item 8, grain backend); use cv2, pil or '
-                'native')
+            from gltvae_torch.data.grain_loader import (ShardOptions,
+                                                        make_grain_loader)
+            # grain's sharding: this process's dataset is the slice
+            # ids[pid::pc] and it batches bs/pc rows of each global batch
+            # (other rows share a batch than in a one-process run)
+            shard_options, bs = None, self.batch_size
+            if self.shard is not None:
+                pid, pc = self.shard
+                if bs % pc:
+                    raise ValueError(
+                        f'host-sharded grain loading needs batch_size '
+                        f'divisible by process_count (got {bs} % {pc})')
+                shard_options = ShardOptions(shard_index=pid, shard_count=pc)
+                bs //= pc
+            return make_grain_loader(
+                image_dir, split.ids, split.labels, batch_size=bs,
+                image_size=size, seed=self.seed,
+                reshuffle_each_epoch=self.reshuffle,
+                num_workers=self.num_workers,
+                center_crop=self.cfg.center_crop,
+                shard_options=shard_options)
         if backend == 'native':
             from gltvae_torch.data.native_loader import \
                 NativeImageFolderDataset

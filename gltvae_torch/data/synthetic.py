@@ -119,3 +119,30 @@ def write_celeba_corpus(root: str, n_train: int, n_valid: int, n_test: int,
             f.write(f'{name},{part}\n')
     return {'train': n_train, 'valid': n_valid, 'test': n_test,
             'encode_s': encode_s}
+
+
+def make_bench_corpus(root: str, n: int, size=(218, 178)) -> list:
+    """The bench's CelebA-format corpus (tools/bench_data.py's
+    ``make_corpus``, byte for byte): ``root/img_align_celeba/000000.jpg``...
+    of uniform noise written with PIL at quality 90, and
+    ``list_attr_celeba.csv`` with 40 random ±1 columns, all from
+    ``RandomState(0)``. Returns the image paths."""
+    import os
+
+    import PIL.Image
+    from gltvae_torch.config import CELEBA_LABELS
+    img_dir = os.path.join(root, 'img_align_celeba')
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    paths, lines = [], ['image_id,' + ','.join(CELEBA_LABELS)]
+    for i in range(n):
+        img = rng.randint(0, 255, (*size, 3), dtype=np.uint8)
+        name = f'{i:06d}.jpg'
+        p = os.path.join(img_dir, name)
+        PIL.Image.fromarray(img).save(p, quality=90)
+        paths.append(p)
+        lines.append(name + ',' + ','.join(
+            map(str, rng.choice([-1, 1], size=40))))
+    with open(os.path.join(root, 'list_attr_celeba.csv'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return paths

@@ -33,8 +33,13 @@ S+2P and the augment kernel crops each back to S x S (random offset,
 random horizontal flip, x * 1/255) on the device, one launch per dispatch.
 The draw for global step s comes from a generator seeded by
 ``step_seed(seed + 2, s)``, so the crops do not depend on
-``steps_per_dispatch``. Eval batches are never augmented. TensorBoard and
-a mesh are not ported yet; a mesh raises NotImplementedError.
+``steps_per_dispatch``. Eval batches are never augmented. A mesh is not
+ported yet and raises NotImplementedError.
+
+``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
+(``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
+for NaN and names the first op that made one (``utils/debug_nans.py``,
+the counterpart of ``jax_debug_nans``).
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from gltvae_torch.train.steps import (
     make_resident_eval_step, make_resident_mixed_scan_train_step,
     make_resident_scan_train_steps, make_scan_elbo_step, make_scan_eval_step,
     make_train_steps)
+from gltvae_torch.utils.debug_nans import nan_checked
 
 logger = logging.getLogger(__name__)
 
@@ -76,6 +82,7 @@ class Trainer:
                  mu_init: Optional[np.ndarray] = None,
                  checkpoint_dir: Optional[str] = None,
                  metrics_path: Optional[str] = None,
+                 tensorboard_dir: Optional[str] = None,
                  nan_check_every: int = 50,
                  steps_per_dispatch: int = 1,
                  device=None,
@@ -83,7 +90,8 @@ class Trainer:
                  resident_eval: str = 'auto',
                  resident_eval_max_bytes: int = 768 * 2**20,
                  resident_train: str = 'auto',
-                 resident_train_max_bytes: int = 3 * 2**30):
+                 resident_train_max_bytes: int = 3 * 2**30,
+                 debug_nans: bool = False):
         check_supported(model_cfg, train_cfg, mesh=mesh)
         for name, mode in (('resident_eval', resident_eval),
                            ('resident_train', resident_train)):
@@ -106,6 +114,14 @@ class Trainer:
         self._scan_elbo = make_scan_elbo_step(model, train_cfg)
         self._resident_eval_step = make_resident_eval_step(model, train_cfg)
         self._resident_elbo_step = make_resident_elbo_step(model, train_cfg)
+        self._debug_nans = debug_nans
+        if debug_nans:
+            for name in ('_sup_step', '_unsup_step', '_chunk_step',
+                         '_scan_eval', '_scan_elbo', '_resident_eval_step',
+                         '_resident_elbo_step'):
+                fn = getattr(self, name)
+                if fn is not None:
+                    setattr(self, name, nan_checked(fn))
         # 'auto' = resident when the splits fit their budget; 'off' = always
         # shipped from the host
         self._resident_eval_mode = resident_eval
@@ -119,7 +135,8 @@ class Trainer:
                      if checkpoint_dir else None)
         self._steps_saved: set = set()  # steps persisted by THIS run
         self._gating_hist = None        # lazy {epoch: mu} snapshot store
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path,
+                                     tensorboard_dir=tensorboard_dir)
         self.throughput = Throughput()
         # eval draws: one generator from seed+1, advanced batch by batch
         self._eval_gen = torch.Generator(device=self.device)
@@ -443,6 +460,8 @@ class Trainer:
             else:
                 fns = make_resident_scan_train_steps(self.model, self.cfg)
                 fn = fns[kind == 'unsup']
+            if self._debug_nans:
+                fn = nan_checked(fn)
             self._resident_train_fns[kind] = fn
         return fn
 

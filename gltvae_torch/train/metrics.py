@@ -1,11 +1,13 @@
-"""Structured training metrics: per-step ELBO decomposition as CSV, and an
-images/sec meter (counterpart of gltvae/train/metrics.py; TensorBoard
-output waits for ROADMAP Queue 1 item 7).
+"""Structured training metrics: per-step ELBO decomposition as CSV and,
+optionally, TensorBoard scalar events, and an images/sec meter (counterpart
+of gltvae/train/metrics.py).
 
 Rows are queued with their values still on the device and fetched together
 at flush, so logging never makes the train loop wait for the device. The
 CSV has the JAX package's columns: step, time, the metrics, epoch and
-supervised, sorted by name.
+supervised, sorted by name. With ``tensorboard_dir`` each flush also writes
+every numeric cell but step and time as a scalar at ``int(row['step'])``,
+through ``gltvae_torch.utils.tb_events`` (no tensorflow).
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gltvae_torch.utils.tb_events import EventFileWriter
+
 
 class MetricsLogger:
-    def __init__(self, path: Optional[str] = None, flush_every: int = 50):
+    def __init__(self, path: Optional[str] = None, flush_every: int = 50,
+                 tensorboard_dir: Optional[str] = None):
         self.path = path
         self.flush_every = flush_every
         self._pending: List[Dict] = []   # values may be device tensors
@@ -29,6 +34,12 @@ class MetricsLogger:
         # a resumed run appends to the existing CSV: one header per file
         self._header_written = bool(path and os.path.exists(path)
                                     and os.path.getsize(path) > 0)
+        # the directory now, so a bad path fails before training; the
+        # event file at the first flush
+        self.tensorboard_dir = tensorboard_dir
+        self._tb: Optional[EventFileWriter] = None
+        if tensorboard_dir:
+            os.makedirs(tensorboard_dir, exist_ok=True)
 
     def log(self, step: int, metrics: Dict, **extra):
         """Queue a row without waiting for the device."""
@@ -51,6 +62,13 @@ class MetricsLogger:
             rows[i][k] = float(v)
         self._rows.extend(rows)
         self._pending.clear()
+        if self.tensorboard_dir:
+            if self._tb is None:
+                self._tb = EventFileWriter(self.tensorboard_dir)
+            for r in rows:
+                self._tb.write(int(r['step']), {
+                    k: v for k, v in r.items() if k not in ('step', 'time')
+                    and isinstance(v, (int, float))})
         if self.path:
             write_header = not self._header_written
             with open(self.path, 'a', newline='') as f:

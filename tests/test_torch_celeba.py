@@ -176,10 +176,28 @@ def test_flag_conflicts_raise_gltvae_errors(corpus, tmp_path, kw,
     assert str(te.value) == str(je.value)
 
 
-def test_grain_backend_is_not_ported(corpus):
-    _, t = _readers(corpus, 0.5, **SPLIT, decode_backend='grain')
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 8'):
-        t.setup_data_loaders()
+def test_grain_backend_is_not_ported(corpus, monkeypatch):
+    """(The name dates from before the port had the grain backend.) Every
+    split's grain loader gives gltvae's grain batches byte for byte over
+    an epoch and one more batch, with grain's compiled index_shuffle
+    injected into the port (tests/test_torch_grain.py)."""
+    import functools
+
+    from gltvae_torch.data import grain_loader
+    from tests.test_torch_grain import grain_index_shuffle
+    monkeypatch.setattr(grain_loader, 'make_grain_loader', functools.partial(
+        grain_loader.make_grain_loader, index_shuffle=grain_index_shuffle()))
+    j, t = _readers(corpus, 0.5, **SPLIT, decode_backend='grain',
+                    num_workers=2)
+    jl, tl = j.setup_data_loaders(), t.setup_data_loaders()
+    assert list(tl) == list(jl)
+    for m, loader in tl.items():
+        assert loader.n_s == jl[m].n_s
+        it, ij = iter(loader), iter(jl[m])
+        for _ in range(loader.epoch_batches + 1):
+            (x, y), (jx, jy) = next(it), next(ij)
+            assert np.array_equal(x, jx) and np.array_equal(y, jy), m
+        loader.close()
 
 
 # -------------------------------- decode --------------------------------

@@ -172,3 +172,21 @@ def test_serving_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
         assert f'[phase {n}]' in printed
     assert 'slice_traversal:' in printed and 'slice_serving:' in printed
     assert 'skipped' not in printed.split('[phase 24]')[1].split('\n')[0]
+
+
+def test_host_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phases 27-29 on the CPU from the tiny corpus: the synthetic CLI run
+    launches where the card would with and without --tensorboard
+    --debug-nans (16 steps + 24 eval batches at batch 8), its events equal
+    metrics.csv, the NaN weight raises; the grain run launches 12 (8 steps
+    + 4 eval batches) and each loader's first epoch is a permutation; the
+    bench prints its line with every key set that the CPU can set."""
+    celeba = _rehearse(monkeypatch, tmp_path)
+    out = chip_smoke.host_phases(torch.device('cpu'), 'cpu', celeba)
+    assert out['debug_nans'] == 40 and out['grain'] == 12
+    assert out['bench'] > 0
+    printed = capsys.readouterr().out
+    for n in (27, 28, 29):
+        assert f'[phase {n}]' in printed
+    for line in ('slice_debug_nans:', 'slice_grain:', 'bench: {'):
+        assert line in printed

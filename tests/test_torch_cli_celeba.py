@@ -107,9 +107,21 @@ def test_cli_trains_from_files_then_reruns_test_only(corpus, tmp_path):
 
 
 def test_grain_backend_raises_naming_its_roadmap_item(corpus, tmp_path):
+    """(The name dates from before the port had the grain backend.) The
+    CLI trains through it, writes its TensorBoard events under
+    DIR/<run name>, and refuses it with --cache-decoded as train.py
+    does."""
     data = tmp_path / 'data'
     shutil.copytree(corpus, data)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 8'):
-        cli.main(_flags(data, '--do-train', '--epochs', '1', '--sup', '1.0',
-                        '--decode-backend', 'grain', '--device', 'cpu',
+    res = cli.main(_flags(data, '--do-train', '--epochs', '1', '--sup', '1.0',
+                          '--decode-backend', 'grain', '--device', 'cpu',
+                          '--tensorboard', str(tmp_path / 'tb'),
+                          '--output-dir', str(tmp_path / 'runs')))
+    assert np.isfinite(res[1.0])
+    assert (tmp_path / 'runs' / 'params_1.0_learnable' / 'result.json'
+            ).exists()
+    assert list((tmp_path / 'tb' / 'params_1.0_learnable').iterdir())
+    with pytest.raises(ValueError, match='grain manages its own'):
+        cli.main(_flags(data, '--sup', '1.0', '--decode-backend', 'grain',
+                        '--cache-decoded', '--device', 'cpu',
                         '--output-dir', str(tmp_path / 'runs')))

@@ -1,4 +1,5 @@
-"""gltvae_torch stands alone: no JAX, nothing of gltvae, and no silent
+"""gltvae_torch stands alone: no JAX, nothing of gltvae, no grain,
+tensorflow or tensorboard (each imports JAX or tensorflow), and no silent
 fall-back to the CPU."""
 
 import ast
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'gltvae_torch'
-FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gltvae'}
+FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gltvae', 'grain',
+             'tensorflow', 'tensorboard'}
 
 MODULES = sorted(
     '.'.join(p.relative_to(ROOT).with_suffix('').parts).replace(
@@ -80,12 +82,16 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
     'gltvae_torch.eval.traversal', 'gltvae_torch.utils.h5_import',
     'gltvae_torch.utils.h5_export', 'gltvae_torch.utils.serving',
     'gltvae_torch.render', 'gltvae_torch.export_h5',
-    'gltvae_torch.export_serving', 'gltvae_torch.ops.preprocess'])
+    'gltvae_torch.export_serving', 'gltvae_torch.ops.preprocess',
+    'gltvae_torch.data.grain_loader', 'gltvae_torch.utils.tb_events',
+    'gltvae_torch.train.metrics', 'gltvae_torch.utils.debug_nans',
+    'gltvae_torch.bench'])
 def test_data_layer_and_infer_import_alone(module):
-    """Each module of the data layer, batch inference, interchange and
-    serving, imported alone in a fresh interpreter with JAX and gltvae
-    blocked (importing them raises), loads none of them; nothing is built
-    at import (the native pool builds on first use)."""
+    """Each module of the data layer, batch inference, interchange,
+    serving, metrics and the bench, imported alone in a fresh interpreter
+    with the forbidden packages blocked (importing them raises), loads none
+    of them; nothing is built at import (the native pool builds on first
+    use)."""
     assert module in MODULES
     block = ''.join(f'sys.modules[{m!r}] = None\n' for m in sorted(FORBIDDEN))
     code = ('import sys\n' + block +
