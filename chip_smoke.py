@@ -91,7 +91,26 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     loader's first epoch a permutation of its split;
 29. ``python -m gltvae_torch.bench`` at reduced sizes (10 chunks of 4
     steps, eval over 2,048 images, e2e over 512 JPEGs): its JSON line
-    (printed as ``bench: ...``) with every key bench.py fills set.
+    (printed as ``bench: ...``) with every key bench.py fills set;
+30. a mesh of one rank over NCCL (``parallel.mesh.initialize_multihost``
+    with a TCP coordinator and one process): phase 5's run through
+    ``Trainer(mesh=)`` equals phase 5's run without a mesh bit for bit
+    (params, Adam moments, every metric row) with its 22 dequant
+    launches, both on cuDNN's deterministic algorithms (the default ones
+    do not repeat a run bit for bit);
+31. two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), spawned with a file:// store under build/chip_smoke_dp/, each
+    running phase 5's resident path and phase 9's augmented path
+    (augment_pad 4, steps_per_dispatch 4) at global batch 256 (128 a rank)
+    for 2 epochs: 22 dequant launches a rank on the first, 4 augment
+    launches of 512 images and 6 dequant on the second; both kernels
+    bit-equal to their plain versions at the ranks' shapes; each rank's
+    crops bit-equal to its rows of the one-process run's; the ranks' states
+    equal; every metric row within 1e-4 rel of the one-process run; then
+    one sup and one unsup step from one state on 2 ranks vs 1 process:
+    metrics rel 1e-5, params rtol 2e-4 atol 1e-6, each element outside
+    that within lr/4 of the Adam step of its rank's own moments (the rule
+    of phases 6 and 10), Adam moments 2e-4 of their leaf's largest value.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Run artifacts go to build/chip_smoke*/.
@@ -271,11 +290,14 @@ def synced(fn, times, shapes=None):
     shape of its result into `shapes`)."""
     import torch
 
+    wait = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+
     def run(*a, **kw):
-        torch.cuda.synchronize()
+        wait()
         t = time.perf_counter()
         out = fn(*a, **kw)
-        torch.cuda.synchronize()
+        wait()
         times.append(time.perf_counter() - t)
         if shapes is not None:
             shapes.append(tuple(out.shape))
@@ -318,20 +340,22 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
         tsteps._prep_image = lambda x, size: (
             record.append(x.clone()) if x.dtype == torch.uint8 else None,
             prep(x, size))[1]
+    cuda = dev.type == 'cuda'
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
         preprocess.launches = preprocess.augment_launches = 0  # path starts
         t0 = time.perf_counter()
         result = trainer.train(loaders, param_dir=run_dir, log_every=1)
         test_acc = trainer.test(loaders['test'])
-        torch.cuda.synchronize()
+        sync(dev)
         launches = preprocess.launches                      # ... and ends
         augment_launches = preprocess.augment_launches
         wall = time.perf_counter() - t0
     finally:
         tsteps._prep_image = prep
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     steps = trainer.state.step
     eval_batches = 2 * loaders['valid'].epoch_batches \
         + loaders['test'].epoch_batches
@@ -1180,6 +1204,337 @@ def host_phases(dev, smi, celeba):
     return out
 
 
+def count_plain_calls():
+    """On the CPU the kernels' wrappers take their plain versions and count
+    nothing: count each call where the card would launch (a CPU rehearsal
+    of phase 31's ranks, which cannot be patched from outside)."""
+    import gltvae_torch.train.steps as tsteps
+    from gltvae_torch.ops import preprocess
+    dq, aug = preprocess.dequant, preprocess._augment
+
+    def dequant(u8, *a, **k):
+        preprocess.launches += 1
+        return dq(u8, *a, **k)
+
+    def augment(*a, **k):
+        preprocess.augment_launches += 1
+        return aug(*a, **k)
+    preprocess.dequant = tsteps.dequant = dequant
+    preprocess._augment = augment
+
+
+def augmented_run(label, model_cfg, train_cfg, splits, dev, run_name,
+                  **trainer_kw):
+    """Phase 9's augmented path (steps_per_dispatch 4, shipped), 2 epochs
+    and the test, with the launch counts set to 0 just before and read
+    just after; each crop's sha256 (and its rows' sha256 for each rank of
+    a 2-rank mesh) kept. Returns what the run measured."""
+    import hashlib
+
+    import torch
+    from gltvae_torch.data.pipeline import BatchLoader
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.train.loop import Trainer
+    mesh = trainer_kw.get('mesh')
+    shard = (mesh.rank, mesh.world) if mesh is not None else None
+    loaders = {k: BatchLoader(v, BATCH, seed=0, shard=shard)
+               for k, v in splits.items()}
+    run_dir = os.path.join(ROOT, 'build', run_name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    trainer = Trainer(model_cfg, train_cfg,
+                      mu_init=cooccurrence_gating_matrix(
+                          splits['sup'].labels),
+                      metrics_path=os.path.join(run_dir, 'metrics.csv'),
+                      steps_per_dispatch=4, device=dev,
+                      local_batches=shard is not None, **trainer_kw)
+    sha = lambda t: hashlib.sha256(
+        t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+    crops, chunk_s = [], []
+    augment = trainer._augment
+
+    def record(u8):
+        out = augment(u8)
+        if len(crops) == 0:             # the kernel vs plain at this shape
+            draws = [torch.stack(v) for v in zip(*(
+                preprocess.draw_crop_flip(
+                    torch.Generator(device=dev).manual_seed(i),
+                    u8.shape[1], u8.shape[2], u8.shape[3],
+                    model_cfg.image_size) for i in range(len(u8))))]
+            got = preprocess.fused_augment_stacked_given(
+                u8, *draws, model_cfg.image_size)
+            check(torch.equal(got, preprocess.augment_reference(
+                u8, *draws, model_cfg.image_size)),
+                f'{label}: augment != plain at {tuple(u8.shape)}')
+            preprocess.augment_launches -= 1    # not the path's launch
+        b = out.shape[1] // 2
+        crops.append({'shape': tuple(out.shape), 'sha': sha(out),
+                      'rows': [sha(out[:, r * b:(r + 1) * b])
+                               for r in range(2)]})
+        return out
+    trainer._augment = record
+    trainer._chunk_step = synced(trainer._chunk_step, chunk_s)
+    sync(dev)
+    preprocess.launches = preprocess.augment_launches = 0   # path starts
+    trainer.train(loaders, log_every=1)
+    test_acc = trainer.test(loaders['test'])
+    sync(dev)
+    launches = (preprocess.augment_launches, preprocess.launches)  # ends
+    check(trainer.state.step == 16, f'{label}: {trainer.state.step} steps')
+    check(0.0 <= test_acc <= 1.0, f'{label}: test accuracy {test_acc}')
+    return dict(state=trainer.state.state_dict(), rows=trainer.metrics.rows,
+                crops=crops, launches=launches, test_acc=test_acc,
+                chunk_s=chunk_s, trainer=trainer)
+
+
+def one_steps(model_cfg, train_cfg, mu, batches, dev, mesh=None):
+    """One sup step and one unsup step, each from the initial state, on
+    the global (x, y) `batches` (this rank's rows of them on a mesh): the
+    metrics and the state after each, and the initial params."""
+    import torch
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.train.state import create_train_state, init_model
+    from gltvae_torch.train.steps import make_train_steps
+    out = []
+    for (x, y), sup in zip(batches, (True, False)):
+        model = init_model(model_cfg, train_cfg, mu, dev)
+        state = create_train_state(model, train_cfg)
+        dp = None
+        if mesh is not None:
+            shard_state(state, mesh)
+            dp = DataParallel(mesh)
+            x, y = x[mesh.rows(len(x))], y[mesh.rows(len(y))]
+        p0 = {k: v.clone().cpu() for k, v in model.state_dict().items()}
+        steps = make_train_steps(model, train_cfg, dp)
+        _, m = steps[0 if sup else 1](state, torch.from_numpy(x).to(dev),
+                                      torch.from_numpy(y).to(dev), 1.0)
+        out.append(dict(metrics={k: float(v) for k, v in m.items()},
+                        state=state.state_dict(), p0=p0))
+    return out
+
+
+def dp_rank(rank, world, store, dev_name, model_cfg, train_cfg, splits,
+            model_a, train_a, splits_a, batch, root):
+    """One of phase 31's gloo ranks on `dev_name`: the resident path, the
+    augmented path and the one-step pair; saves what it measured beside
+    the `store` as rank<r>.pt. `batch` and `root` are the parent's BATCH
+    and ROOT."""
+    global BATCH, ROOT
+    BATCH, ROOT = batch, root
+    sys.path.insert(0, ROOT)
+    import torch
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.parallel import mesh as pmesh
+    from gltvae_torch.parallel.dp import replicas_agree
+    dev = torch.device(dev_name)
+    if dev.type == 'cpu':
+        torch.set_num_threads(1)
+        count_plain_calls()
+    pmesh.initialize_multihost(f'file://{store}', world, rank, device=dev,
+                               backend='gloo')
+    try:
+        mesh = pmesh.create_mesh(dev)
+        check((mesh.rank, mesh.world, mesh.backend, mesh.device)
+              == (rank, world, 'gloo', dev), f'rank {rank}: mesh {mesh}')
+        # the dequant kernel vs plain at a rank's batch shape
+        u8 = torch.from_numpy(splits['sup'].images[:BATCH // world]).to(dev)
+        check(torch.equal(preprocess.dequant(u8),
+                          preprocess.dequant_reference(u8)),
+              f'rank {rank}: dequant != plain at {tuple(u8.shape)}')
+        plain = train_and_test(f'rank {rank} resident', model_cfg,
+                               train_cfg, splits, dev,
+                               f'chip_smoke_dp/run{rank}', mesh=mesh)
+        aug = augmented_run(f'rank {rank} augmented', model_a, train_a,
+                            splits_a, dev, f'chip_smoke_dp/aug{rank}',
+                            mesh=mesh)
+        agree = (replicas_agree(plain['trainer'].state, mesh),
+                 replicas_agree(aug['trainer'].state, mesh))
+        mu = cooccurrence_gating_matrix(splits['sup'].labels)
+        pair = one_steps(model_cfg, train_cfg, mu,
+                         [(splits[k].images[:BATCH], splits[k].labels[:BATCH])
+                          for k in ('sup', 'unsup')], dev, mesh)
+        plain['state'] = plain['trainer'].state.state_dict()
+        keep = lambda r: {k: v for k, v in r.items() if k != 'trainer'}
+        torch.save(dict(plain=keep(plain), aug=keep(aug), agree=agree,
+                        pair=pair),
+                   os.path.join(os.path.dirname(store), f'rank{rank}.pt'))
+    finally:
+        pmesh.shutdown()
+
+
+def dp_phases(dev, smi, ref5, model_cfg, train_cfg, splits, model_a,
+              train_a, splits_a, timeout_s=300.0):
+    """Phases 30-31: a mesh of one over NCCL against phase 5 (`ref5`), and
+    two gloo ranks on the one card against the one-process runs. Returns
+    the dequant launches of the mesh of one and of each rank's resident
+    run, and each rank's (augment, dequant) launches on the augmented
+    path."""
+    import socket
+
+    import torch
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.parallel import mesh as pmesh
+    from gltvae_torch.train.state import keras_alpha
+    out = {}
+    keys = ('loss', 'elbo', 'log_pxz', 'kl', 'log_qy_zc', 'log_qy_x',
+            'c_sum')
+
+    # ------------------------------------------------------------- 30
+    # cuDNN's default backward convolutions sum in an order that varies
+    # from run to run (phase 11's two runs of identical batches end with
+    # params 4.6e-5 apart), so phase 5's run is repeated, without and with
+    # the mesh, on cuDNN's deterministic algorithms, and those two are
+    # held bit for bit
+    with socket.socket() as sk:         # a free port for the TCP store
+        sk.bind(('127.0.0.1', 0))
+        port = sk.getsockname()[1]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pmesh.initialize_multihost(f'127.0.0.1:{port}', 1, 0, device=dev)
+    try:
+        mesh = pmesh.create_mesh(dev)
+        want = 'nccl' if dev.type == 'cuda' else 'gloo'
+        check((mesh.world, mesh.backend, mesh.device) == (1, want, dev),
+              f'mesh of one: {mesh}')
+        runs = [train_and_test(label, model_cfg, train_cfg, splits, dev,
+                               f'chip_smoke_mesh1_{i}', **kw)
+                for i, (label, kw) in enumerate((
+                    ('phase 5 again, deterministic', {}),
+                    ('mesh of one, deterministic', dict(mesh=mesh))))]
+    finally:
+        pmesh.shutdown()
+        torch.backends.cudnn.deterministic = deterministic
+    sds = [r['trainer'].state.state_dict() for r in runs]
+    differ = [f'{g}.{k}' for g in ('params', 'adam_m', 'adam_v')
+              for k, v in sds[0][g].items()
+              if not torch.equal(v, sds[1][g][k])]
+    strip = lambda rows: [{k: v for k, v in r.items() if k != 'time'}
+                          for r in rows]
+    check(not differ and strip(runs[1]['rows']) == strip(runs[0]['rows'])
+          and sds[0]['adam_count'] == sds[1]['adam_count'],
+          f'mesh of one != phase 5\'s run: {differ[:5]}')
+    launches = [r['launches'] for r in runs]
+    check(launches == [ref5['launches']] * 2,
+          f'dequant launches {launches} != phase 5\'s {ref5["launches"]}')
+    gap5 = max(float((sds[0]['params'][k] - v).abs().max())
+               for k, v in ref5['state']['params'].items())
+    out['nccl_1'] = launches[1]
+    med = [statistics.median(r['step_s'][1:]) for r in runs]
+    phase(30, f'mesh of one over {mesh.backend} on {mesh.device}: phase '
+              f'5\'s run through Trainer(mesh=) equal to the same run '
+              f'without a mesh bit for bit (params, Adam moments, '
+              f'{len(runs[1]["rows"])} metric rows; both on cuDNN\'s '
+              f'deterministic algorithms; vs phase 5 itself params max abs '
+              f'{gap5:.3e}, not held); dequant launches {launches[1]}')
+    print(f'slice_mesh1: step_ms median {med[1] * 1e3:.3f} with the mesh '
+          f'of one, {med[0] * 1e3:.3f} without (deterministic cuDNN; '
+          f'phase 5: {ref5["step_med"] * 1e3:.3f}; steps 2-16, '
+          f'synchronized); card {smi}', flush=True)
+    del runs, sds
+
+    # ------------------------------------------------------------- 31
+    world = 2
+    dp_dir = os.path.join(ROOT, 'build', 'chip_smoke_dp')
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    os.makedirs(dp_dir)
+    t0 = time.perf_counter()
+    pmesh.spawn(dp_rank, world, (os.path.join(dp_dir, 'store'), str(dev),
+                                 model_cfg, train_cfg, splits, model_a,
+                                 train_a, splits_a, BATCH, ROOT), timeout_s)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(dp_dir, f'rank{r}.pt'),
+                        weights_only=False) for r in range(world)]
+    one = augmented_run('one-process augmented', model_a, train_a, splits_a,
+                        dev, 'chip_smoke_dp/aug')
+    mu = cooccurrence_gating_matrix(splits['sup'].labels)
+    pair = one_steps(model_cfg, train_cfg, mu,
+                     [(splits[k].images[:BATCH], splits[k].labels[:BATCH])
+                      for k in ('sup', 'unsup')], dev)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-6)
+    for r, got in enumerate(ranks):
+        plain, aug = got['plain'], got['aug']
+        check(all(got['agree']), f'rank {r}: replicas disagree')
+        check(plain['launches'] == 22 and plain['steps'] == 16,
+              f'rank {r}: resident path dequant launches '
+              f'{plain["launches"]}, steps {plain["steps"]}')
+        b = BATCH // world
+        check(aug['launches'] == (4, 6) and [c['shape'] for c in
+                                             aug['crops']]
+              == [(4, b, model_a.image_size, model_a.image_size, 3)] * 4,
+              f'rank {r}: augment path launches {aug["launches"]} of '
+              f'{[c["shape"] for c in aug["crops"]]}')
+        check([c['sha'] for c in aug['crops']]
+              == [c['rows'][r] for c in one['crops']],
+              f'rank {r}: its crops differ from its rows of the '
+              f'one-process crops')
+    for name, ref in (('resident', ref5['rows']), ('augmented',
+                                                   one['rows'])):
+        worst = max(rel(a[k], b[k]) for got in ranks
+                    for a, b in zip(got['plain' if name == 'resident'
+                                        else 'aug']['rows'], ref)
+                    for k in keys)
+        phase(31, f'{name}: 2 ranks vs 1 process, 16 steps: metric rows '
+                  f'max rel {worst:.3e} (tol 1e-4)')
+        check(worst <= 1e-4, f'{name}: 2-rank metrics off the 1-process '
+                             f'run')
+    for name, g in (('params', 'params'), ('adam_m', 'adam_m'),
+                    ('adam_v', 'adam_v')):
+        gap = max(float((got['plain']['state'][g][k] - v).abs().max())
+                  for got in ranks for k, v in ref5['state'][g].items())
+        print(f'  2 ranks vs 1 process after 16 steps: {name} max abs '
+              f'{gap:.3e} (printed, not held)', flush=True)
+    lr, eps = train_cfg.lr, train_cfg.adam_eps
+    met_w = mom_w = step_w = 0.0
+    n_out = 0
+    for got in ranks:
+        for mine, ref in zip(got['pair'], pair):
+            met_w = max(met_w, max(rel(mine['metrics'][k],
+                                       ref['metrics'][k]) for k in keys))
+            for g in ('adam_m', 'adam_v'):
+                for k, v in ref['state'][g].items():
+                    mom_w = max(mom_w, float(
+                        (mine['state'][g][k] - v).abs().max())
+                        / max(float(v.abs().max()), 1e-30))
+            alpha = keras_alpha(mine['state']['adam_count'], lr)
+            for k, p in ref['state']['params'].items():
+                q = mine['state']['params'][k]
+                outside = (q - p).abs() > 1e-6 + 2e-4 * p.abs()
+                n_out += int(outside.sum())
+                if k in mine['state']['adam_m'] and bool(outside.any()):
+                    step = mine['p0'][k] - alpha * mine['state']['adam_m'][
+                        k] / (mine['state']['adam_v'][k].sqrt() + eps)
+                    step_w = max(step_w, float(
+                        (q - step)[outside].abs().max()) / lr)
+                elif bool(outside.any()):
+                    step_w = float('inf')    # a frozen μ moved
+    phase(31, f'one sup and one unsup step from one state, 2 ranks vs 1 '
+              f'process: metrics max rel {met_w:.3e} (tol 1e-5); Adam m, v '
+              f'max abs / leaf max {mom_w:.3e} (tol 2e-4); params outside '
+              f'rtol 2e-4 atol 1e-6: {n_out} elements, held instead within '
+              f'lr/4 of the Adam step of their rank\'s moments: '
+              f'{step_w:.3e} x lr (tol 0.25)')
+    check(met_w <= 1e-5, '2-rank one-step metrics off the 1-process step')
+    check(mom_w <= 2e-4, '2-rank Adam moments off the 1-process step')
+    check(step_w <= 0.25, '2-rank params are not the Adam step of their '
+                          'moments')
+    meds = [statistics.median(got['plain']['step_s'][1:]) for got in ranks]
+    phase(31, f'2 gloo ranks on {dev} ({spawn_s:.1f} s with their start): '
+              f'each rank 22 dequant launches on the resident path, 4 '
+              f'augment launches of {BATCH // world * 4} images and 6 '
+              f'dequant on the augmented path; both kernels bit-equal to '
+              f'plain at the ranks\' shapes; each rank\'s crops bit-equal '
+              f'to its rows of the 1-process crops; the ranks\' states '
+              f'equal')
+    print(f'slice_dp: resident step_ms median per rank '
+          f'{", ".join(f"{m * 1e3:.3f}" for m in meds)} (two ranks share '
+          f'one card through gloo: not a DP speed); one process '
+          f'{ref5["step_med"] * 1e3:.3f} (phase 5); card {smi}', flush=True)
+    out['gloo_2'] = ranks[0]['plain']['launches']
+    out['gloo_2_augment'] = ranks[0]['aug']['launches']
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1327,6 +1682,10 @@ def main():
           f'{BATCH / step_med:.0f} img/s, trainer meter '
           f'{main_run["result"]["images_per_sec"]:.0f} img/s, peak memory '
           f'{main_run["peak"] / 2**20:.1f} MiB; card {smi}', flush=True)
+    # phase 30 holds a mesh of one to this run
+    ref5 = dict(state=main_run['trainer'].state.state_dict(),
+                rows=main_run['rows'], launches=main_launches,
+                step_med=step_med)
     del main_run
 
     # ------------------------------------------------------------- 6
@@ -1693,6 +2052,10 @@ def main():
     # ---------------------------------------------------------- 27-29
     host = host_phases(dev, smi, celeba)
 
+    # ---------------------------------------------------------- 30-31
+    dp = dp_phases(dev, smi, ref5, model_cfg, train_cfg, splits, model_a,
+                   train_a, splits_a)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -1726,6 +2089,11 @@ def main():
         'launches_debug_nans': host['debug_nans'],
         'launches_grain': host['grain'],
         'launches_bench': host['bench'],
+        # phases 30-31: the NCCL mesh of one; each of two gloo ranks on
+        # the resident path and on the augmented path (eval only)
+        'launches_mesh_nccl_1': dp['nccl_1'],
+        'launches_mesh_gloo_2_per_rank': dp['gloo_2'],
+        'launches_mesh_gloo_2_augment_per_rank': dp['gloo_2_augment'][1],
     }, {
         'name': 'augment',
         'route': 'cuda',
@@ -1743,6 +2111,8 @@ def main():
         'per_step_plain_ms': aug_plain_ms,
         'per_step_bound_ms': step_bound,
         'launches_celeba_augment': celeba['celeba_augment'][1],
+        # phase 31: each of two gloo ranks, 512 images a launch
+        'launches_mesh_gloo_2_per_rank': dp['gloo_2_augment'][0],
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -17,6 +17,8 @@ Package layout
 - ``gltvae_torch.eval``     gating analysis, latent traversal
 - ``gltvae_torch.utils``    Keras .h5 import/export, torch.export serving,
                             TensorBoard event files, --debug-nans
+- ``gltvae_torch.parallel`` data parallelism over torch.distributed: the
+                            mesh of ranks, the DP step, per-rank noise
 - ``gltvae_torch.cli``      ``python -m gltvae_torch.cli`` (train.py counterpart);
                             ``infer``, ``render``, ``export_h5`` and
                             ``export_serving`` are the tools/ counterparts

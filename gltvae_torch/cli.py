@@ -9,6 +9,9 @@
          bfloat16 --input-s2d on --output-s2d on --remat dots] \\
         [--resident-train off] [--tensorboard DIR] [--debug-nans]
     python -m gltvae_torch.cli --synthetic --do-train ...   # no files
+    torchrun --nproc-per-node=N -m gltvae_torch.cli --mesh ...  # DP
+    python -m gltvae_torch.cli --dist-coordinator HOST:PORT \
+        --dist-num-processes N --dist-process-id I ...     # one per rank
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Per supervision fraction
 it builds the configs, the loaders and the gating init (from the CelebA
@@ -20,9 +23,17 @@ trains and/or tests a Trainer, and writes ``model_config.json``,
 under ``DIR/<run name>``. ``--init-from-h5 DIR`` starts from a
 reference-format .h5 checkpoint folder; without ``--do-train`` it tests
 those weights. ``--debug-nans`` raises FloatingPointError naming the first
-op that made a NaN. It takes train.py's flags but ``--mesh`` and the
-multi-host flags (not ported yet), ``--prng`` and the compilation-cache
-flags; ``--device`` stands for ``--platform``.
+op that made a NaN.
+
+``--mesh`` trains data-parallel over the ranks of a process group, one
+rank per device (``parallel/``; NCCL on CUDA, gloo with ``--device
+cpu``): started by ``torchrun``, or once per rank with the three
+``--dist-*`` flags (all or none); either makes a run with more than one
+process a mesh run. The global batch is ``-bs``; each rank's loaders are
+host-sharded and decode only its rows; rank 0 writes the run's files.
+
+It takes train.py's flags but ``--prng`` and the compilation-cache flags;
+``--device`` stands for ``--platform``.
 """
 
 from __future__ import annotations
@@ -148,8 +159,19 @@ def parse_args(argv=None):
                    help='check every train and eval dispatch for NaN and '
                         'raise FloatingPointError naming the first op that '
                         "made one (jax_debug_nans' counterpart)")
+    p.add_argument('--mesh', action='store_true',
+                   help='data-parallel over the ranks of a process group '
+                        '(torchrun or the --dist-* flags; one rank per '
+                        'device); -bs is the global batch')
+    p.add_argument('--dist-coordinator', default=None, metavar='HOST:PORT',
+                   help='multi-process coordinator address (process 0 '
+                        'serves it; or a tcp:// or file:// URL); needs '
+                        '--dist-num-processes and --dist-process-id')
+    p.add_argument('--dist-num-processes', type=int, default=None)
+    p.add_argument('--dist-process-id', type=int, default=None)
     p.add_argument('--device', default='cuda',
-                   help="'cuda' (default) or 'cpu'")
+                   help="'cuda' (default; the rank's card on a mesh) or "
+                        "'cpu'")
     return p.parse_args(argv)
 
 
@@ -198,15 +220,17 @@ def build_data_config(args, model_cfg):
                       **split_overrides)
 
 
-def make_loaders(args, model_cfg, train_cfg):
+def make_loaders(args, model_cfg, train_cfg, shard=None):
     """(loaders by split, μ init): CelebA files through CelebAReader, or the
-    synthetic fixture."""
+    synthetic fixture. `shard` (rank, world) host-shards every loader: it
+    yields only this rank's rows of each global batch."""
     if not args.synthetic:
         from gltvae_torch.data.celeba import CelebAReader
         reader = CelebAReader(build_data_config(args, model_cfg),
                               train_cfg.perc_supervision,
                               train_cfg.batch_size, seed=args.seed,
-                              reshuffle_each_epoch=not args.parity)
+                              reshuffle_each_epoch=not args.parity,
+                              shard=shard)
         return reader.setup_data_loaders(), reader.init_gating_prob
     from gltvae_torch.data.pipeline import BatchLoader
     from gltvae_torch.data.synthetic import synthetic_splits
@@ -219,7 +243,8 @@ def make_loaders(args, model_cfg, train_cfg):
         seed=args.seed, learnable_signal=args.synthetic_signal,
         train_pad=train_cfg.augment_pad)
     loaders = {k: BatchLoader(v, train_cfg.batch_size, seed=args.seed,
-                              reshuffle_each_epoch=not args.parity)
+                              reshuffle_each_epoch=not args.parity,
+                              shard=shard)
                for k, v in splits.items()}
     sup_lbl = splits['sup'].labels if 'sup' in splits else None
     mu = gating_matrix_from_labels(sup_lbl, splits['valid'].labels,
@@ -227,7 +252,7 @@ def make_loaders(args, model_cfg, train_cfg):
     return loaders, mu
 
 
-def run(args, sup: float):
+def run(args, sup: float, mesh=None):
     from gltvae_torch.config import load_model_config, save_model_config
     from gltvae_torch.train.loop import Trainer
     logger.info('----- supervision %.1f -----', sup)
@@ -245,7 +270,11 @@ def run(args, sup: float):
                     'from %s/model_config.json', param_dir)
         model_cfg = recorded
 
-    loaders, mu_init = make_loaders(args, model_cfg, train_cfg)
+    # host-sharded input on a mesh of more than one rank (train.py's rule)
+    shard = (mesh.rank, mesh.world) if mesh is not None and mesh.world > 1 \
+        else None
+    loaders, mu_init = make_loaders(args, model_cfg, train_cfg, shard)
+    main_rank = mesh is None or mesh.is_main
     trainer = Trainer(model_cfg, train_cfg, mu_init=mu_init,
                       checkpoint_dir=os.path.join(param_dir, 'checkpoints'),
                       metrics_path=os.path.join(param_dir, 'metrics.csv'),
@@ -253,12 +282,13 @@ def run(args, sup: float):
                                                     run_name)
                                        if args.tensorboard else None),
                       steps_per_dispatch=args.steps_per_dispatch,
-                      device=args.device,
+                      device=args.device if mesh is None else None,
+                      mesh=mesh, local_batches=shard is not None,
                       resident_eval=args.resident_eval,
                       resident_train=args.resident_train,
                       debug_nans=args.debug_nans)
     os.makedirs(param_dir, exist_ok=True)
-    if args.do_train or recorded is None:
+    if (args.do_train or recorded is None) and main_rank:
         save_model_config(model_cfg, param_dir)
 
     if args.init_from_h5:
@@ -297,7 +327,8 @@ def run(args, sup: float):
                                'init')
         acc = trainer.test(loaders['test'])
         logger.info('Test Accuracy (best model): %.3f', acc)
-    _write_result_json(param_dir, result, acc, str(trainer.device))
+    if main_rank:
+        _write_result_json(param_dir, result, acc, str(trainer.device))
     return acc
 
 
@@ -322,11 +353,46 @@ def _write_result_json(param_dir, result, test_accuracy, device):
         json.dump(payload, f, indent=2, default=float)
 
 
+def make_mesh(args):
+    """The run's mesh, or None: joins the ``--dist-*`` group (all three
+    flags or none, as train.py) or torchrun's; a run of more than one
+    process is a mesh run."""
+    dist_flags = (args.dist_coordinator, args.dist_num_processes,
+                  args.dist_process_id)
+    if any(f is not None for f in dist_flags) and \
+            any(f is None for f in dist_flags):
+        raise SystemExit(
+            'multi-host runs need all three of --dist-coordinator, '
+            '--dist-num-processes, --dist-process-id '
+            f'(got {dist_flags}); a partial set would silently run '
+            'single-host or crash inside torch.distributed')
+    import torch.distributed as dist
+    from gltvae_torch.parallel import mesh as pmesh
+    if args.dist_num_processes and args.dist_num_processes > 1:
+        pmesh.initialize_multihost(args.dist_coordinator,
+                                   args.dist_num_processes,
+                                   args.dist_process_id, device=args.device)
+    if not (args.mesh or dist.is_initialized()
+            or int(os.environ.get('WORLD_SIZE', '1')) > 1):
+        return None
+    mesh = pmesh.create_mesh(args.device)
+    logger.info('mesh: rank %d of %d on %s (%s)', mesh.rank, mesh.world,
+                mesh.device, mesh.backend or 'no group')
+    return mesh
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(levelname)s '
                         '%(name)s %(message)s')
     args = parse_args(argv)
-    results = {sup: run(args, sup) for sup in args.sup}
+    import torch.distributed as dist
+    owned = not dist.is_initialized()      # a group this run joins, it ends
+    try:
+        mesh = make_mesh(args)
+        results = {sup: run(args, sup, mesh) for sup in args.sup}
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
     logger.info('sweep results: %s', results)
     return results
 

@@ -9,9 +9,9 @@ readable by either package.
 ``dtype`` and ``matmul_precision`` map to torch (``apply_precision``):
 TF32 stays off in cuDNN and cuBLAS in both compute dtypes, so the f32
 remainder of a bf16 step runs in full f32 as the JAX package's does.
-The one value the port does not run yet, a device mesh, raises
-``NotImplementedError`` naming the ROADMAP item that adds it
-(``check_supported``).
+Every value the JAX package runs, on one device or a mesh, the port runs;
+``check_supported`` refuses a global batch that does not split over the
+mesh's ranks.
 """
 
 from __future__ import annotations
@@ -162,12 +162,15 @@ class DataConfig:
 
 def check_supported(model: ModelConfig, train: Optional[TrainConfig] = None,
                     data: Optional[DataConfig] = None, mesh=None) -> None:
-    """Raise for what this port does not run yet: a device mesh (ROADMAP
-    Queue 1 item 12). Every ModelConfig, TrainConfig and DataConfig value
-    the JAX package runs on one device is supported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'mesh: ROADMAP Queue 1 item 12 (data parallelism)')
+    """Every ModelConfig, TrainConfig and DataConfig value the JAX package
+    runs is supported, on one device or on a mesh (``parallel.mesh.Mesh``);
+    on a mesh the global batch must split evenly over the ranks, as
+    gltvae's placement requires (parallel/dp.py)."""
+    if mesh is not None and train is not None \
+            and train.batch_size % mesh.world:
+        raise ValueError(
+            f'global batch dim {train.batch_size} not divisible by '
+            f'process_count {mesh.world}: rows would be silently dropped')
 
 
 def apply_precision(model: ModelConfig) -> None:

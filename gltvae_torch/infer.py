@@ -21,7 +21,13 @@ mean and expected gates by default, sampled z and gates at ``--temp`` with
 ``--stochastic``. The CSV has ``image_id``, one 0/1 column per attribute
 (1 iff p > 0.5) and one ``p_<attribute>`` column (``%.4f``).
 
-Not ported: ``--mesh`` (ROADMAP Queue 1 item 12).
+``--mesh`` labels data-parallel over the ranks of a process group (run
+under ``torchrun --nproc-per-node=N``; one process is a mesh of one):
+``--batch-size`` is the global batch and must be a multiple of the world
+size; each rank decodes its rows of each batch, runs them through the
+dequant kernel and ``predict_probs`` (the global batch's draws, its rows,
+with ``--stochastic``), the probabilities are gathered in rank order and
+rank 0 writes the CSV, the one-process CSV.
 """
 
 from __future__ import annotations
@@ -69,7 +75,9 @@ def parse_args(argv=None):
                         'learned_gating_matrix (fixed gate schemes)')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--mesh', action='store_true',
-                   help='not ported (ROADMAP Queue 1 item 12)')
+                   help='data-parallel inference over the ranks of a '
+                        'process group (torchrun); --batch-size must be a '
+                        'multiple of the world size')
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -167,10 +175,19 @@ def main(argv=None):
     from gltvae_torch.data.celeba import ImageFolderDataset, _SplitData
     from gltvae_torch.data.pipeline import BatchLoader
     from gltvae_torch.train.state import step_seed
+    mesh = dp = None
     if args.mesh:
-        raise NotImplementedError(
-            '--mesh: ROADMAP Queue 1 item 12 (data parallelism)')
-    device = resolve_device(args.device)
+        from gltvae_torch.parallel.dp import DataParallel
+        from gltvae_torch.parallel.mesh import create_mesh
+        mesh = create_mesh(args.device)
+        if args.batch_size % mesh.world:
+            raise SystemExit(f'--batch-size {args.batch_size} must be a '
+                             f'multiple of the {mesh.world}-device mesh')
+        dp = DataParallel(mesh)
+        device = mesh.device
+        print(f'mesh inference over {mesh.world} devices')
+    else:
+        device = resolve_device(args.device)
     cfg = resolve_model_config(args)
     model = load_model(args, cfg, device)
 
@@ -184,23 +201,32 @@ def main(argv=None):
                             center_crop=(cfg.image_size == 128))
     # in name order; the wrap-around tail batch keeps one batch shape, its
     # extra rows are dropped
+    # on a mesh each rank decodes only its rows of each batch
+    shard = (mesh.rank, mesh.world) if mesh is not None and mesh.world > 1 \
+        else None
     loader = BatchLoader(ds, args.batch_size, shuffle=False,
-                         num_workers=args.num_workers)
+                         num_workers=args.num_workers, shard=shard)
     predict = make_predict(model, args.stochastic, args.temp)
     labels = attribute_names(cfg.y_dim)
+    writes = mesh is None or mesh.is_main
     t0 = time.perf_counter()
     it = iter(loader)
     try:
-        with open(args.output, 'w', newline='') as f:
+        with open(args.output if writes else os.devnull, 'w',
+                  newline='') as f:
             w = csv.writer(f)
             w.writerow(['image_id'] + labels + [f'p_{n}' for n in labels])
             for b in range(loader.epoch_batches):
                 x, _ = next(it)
-                gen = None
+                gen = noise = None
                 if args.stochastic:
                     gen = torch.Generator(device=device)
                     gen.manual_seed(step_seed(args.seed, b))
-                probs = predict(torch.from_numpy(x).to(device), gen)
+                    if dp is not None:
+                        noise = dp.eval_noise(model, len(x), gen)
+                probs = predict(torch.from_numpy(x).to(device), gen, noise)
+                if mesh is not None:
+                    probs = mesh.all_gather(probs)
                 lo = b * args.batch_size
                 batch_names = names[lo:lo + args.batch_size]
                 write_rows(w, batch_names,

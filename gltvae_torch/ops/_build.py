@@ -7,7 +7,9 @@ headers (``csrc/*.cuh``) and the compiler flags, so a stale library is
 never loaded. Nothing is built at import: a library is compiled at its
 first use, or by ``build_all``, which starts one nvcc per source at once.
 ptxas's register/spill report for each build is kept beside it as
-``lib<name>-<hash>.log``.
+``lib<name>-<hash>.log``. Each build writes its library and log under
+names of its own process first, so ranks that build at once clobber
+neither.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def _start(name: str) -> Optional[tuple]:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    log = open(out.with_suffix('.log'), 'w')
+    log = open(out.with_suffix(f'.{os.getpid()}.log'), 'w')
     try:
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
@@ -77,10 +79,12 @@ def _finish(name: str, started: Optional[tuple]) -> None:
         return
     proc, tmp, out = started
     rc = proc.wait()
+    log = tmp.with_suffix('.log')
     if rc != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed on csrc/{name}.cu (exit {rc}):\n'
-                           + out.with_suffix('.log').read_text())
+                           + log.read_text())
+    os.replace(log, out.with_suffix('.log'))
     os.replace(tmp, out)
 
 

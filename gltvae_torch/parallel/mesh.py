@@ -1,0 +1,182 @@
+"""The data-parallel mesh: one process per device over ``torch.distributed``
+(counterpart of gltvae/parallel/mesh.py).
+
+A JAX mesh is one process driving N devices, and XLA inserts the gradient
+all-reduce. Here a mesh is a process group: each rank runs the whole
+program on its own device and the collectives are explicit, NCCL on CUDA
+devices and gloo on the CPU. ``Mesh`` records what a rank needs to know:
+its rank, the world size, its device, the backend and the group.
+
+Ranks start under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
+``create_mesh`` joins the group), or with ``initialize_multihost`` given
+the coordinator's address, the number of processes and this process's id
+(train.py's ``--dist-*`` flags). A process with neither is a world of 1
+with no group, whose collectives are no-ops.
+
+Gloo takes CUDA tensors only in ``all_reduce`` and ``broadcast``, so
+``all_gather`` on gloo is an ``all_reduce`` SUM of a zero-filled buffer
+holding this rank's block: exact for every value but -0.0, which comes
+back +0.0 (the gathered rows are uint8 images, 0/1 matches and
+probabilities, none of which is -0.0). NCCL refuses two ranks on one GPU,
+so ranks that share a card use gloo.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from gltvae_torch import resolve_device
+
+DATA_AXIS = 'data'
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank of a 1-D data-parallel mesh. ``group`` is None for a world
+    of 1 with no process group."""
+    rank: int
+    world: int
+    device: torch.device
+    backend: Optional[str] = None
+    group: Optional[object] = None
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 writes the run's files; the others pass a barrier."""
+        return self.rank == 0
+
+    def rows(self, n: int) -> slice:
+        """This rank's contiguous rows of `n` global rows, in rank order."""
+        if n % self.world:
+            raise ValueError(
+                f'global batch dim {n} not divisible by process_count '
+                f'{self.world}: rows would be silently dropped')
+        b = n // self.world
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def all_reduce_(self, t: torch.Tensor, op: str = 'sum') -> torch.Tensor:
+        """In place over the ranks ('sum' or 'max'); a no-op with no group."""
+        if self.group is not None:
+            dist.all_reduce(t, {'sum': dist.ReduceOp.SUM,
+                                'max': dist.ReduceOp.MAX}[op],
+                            group=self.group)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src`'s `t` on every rank, in place."""
+        if self.group is not None:
+            dist.broadcast(t, src, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's `t` concatenated on dim 0 in rank order."""
+        if self.group is None:
+            return t
+        t = t.contiguous()
+        if self.backend == 'gloo':
+            out = t.new_zeros((self.world * t.shape[0],) + t.shape[1:])
+            out[self.rows(out.shape[0])] = t
+            return self.all_reduce_(out)
+        out = t.new_empty((self.world * t.shape[0],) + t.shape[1:])
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        """Every rank waits here for the others (one tiny all_reduce on the
+        rank's device, so NCCL needs no barrier device list)."""
+        self.all_reduce_(torch.zeros(1, device=self.device))
+
+
+def _rank_device(device, local_rank: int) -> torch.device:
+    """`device` ('cuda' by default), a bare 'cuda' resolved to this rank's
+    card, made the current CUDA device."""
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        if dev.index is None:
+            dev = torch.device('cuda', local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def _backend(dev: torch.device) -> str:
+    return 'nccl' if dev.type == 'cuda' else 'gloo'
+
+
+def create_mesh(device=None) -> Mesh:
+    """The mesh of this process: from an initialized default group, else
+    from torchrun's environment (``WORLD_SIZE`` > 1: joins the group,
+    NCCL on CUDA, gloo on the CPU), else a world of 1 with no group. A
+    bare 'cuda' device becomes the rank's card, ``LOCAL_RANK`` (or the rank
+    modulo the cards), and the current CUDA device."""
+    if not dist.is_initialized() and int(os.environ.get('WORLD_SIZE',
+                                                        '1')) > 1:
+        dev = _rank_device(device, int(os.environ.get('LOCAL_RANK', '0')))
+        dist.init_process_group(_backend(dev), init_method='env://')
+    if not dist.is_initialized():
+        return Mesh(0, 1, _rank_device(device, 0))
+    rank = dist.get_rank()
+    dev = _rank_device(device, int(os.environ.get('LOCAL_RANK', rank)))
+    return Mesh(rank, dist.get_world_size(), dev, dist.get_backend(),
+                dist.group.WORLD)
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None,
+                         device=None, backend: Optional[str] = None
+                         ) -> None:
+    """Join this process to the mesh's group before ``create_mesh``: NCCL
+    on a CUDA device, gloo on the CPU (or `backend`). The coordinator is
+    ``host:port`` (a TCP store that process 0 serves) or a ``tcp://`` or
+    ``file://`` URL.
+
+    With no process count, or one process and no coordinator, this is a
+    no-op, as in gltvae. One process with a coordinator makes a world-1
+    group, so the collectives run through the backend on one device."""
+    if num_processes is None or (num_processes <= 1
+                                 and coordinator_address is None):
+        return
+    if coordinator_address is None or process_id is None:
+        raise ValueError('initialize_multihost needs coordinator_address '
+                         'and process_id with num_processes')
+    dev = _rank_device(device, process_id)
+    url = (coordinator_address if '://' in coordinator_address
+           else f'tcp://{coordinator_address}')
+    dist.init_process_group(backend or _backend(dev), init_method=url,
+                            world_size=num_processes, rank=process_id)
+
+
+def shutdown() -> None:
+    """Leave the default group, if this process is in one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, args: Sequence = (),
+          timeout_s: float = 120.0) -> None:
+    """Run ``fn(rank, world, *args)`` in `world` fresh processes (the spawn
+    start method; `fn` must be importable) and wait for all of them. A rank
+    that raises or exits non-zero raises here with its traceback, and the
+    others are stopped; ranks still running after `timeout_s` seconds are
+    killed and TimeoutError is raised."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method='spawn')
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f'{world} ranks of {fn.__qualname__} still running '
+                    f'after {timeout_s} s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()

@@ -33,8 +33,22 @@ S+2P and the augment kernel crops each back to S x S (random offset,
 random horizontal flip, x * 1/255) on the device, one launch per dispatch.
 The draw for global step s comes from a generator seeded by
 ``step_seed(seed + 2, s)``, so the crops do not depend on
-``steps_per_dispatch``. Eval batches are never augmented. A mesh is not
-ported yet and raises NotImplementedError.
+``steps_per_dispatch``. Eval batches are never augmented.
+
+**A mesh** (``mesh=``, a ``parallel.mesh.Mesh``; the JAX Trainer's
+``mesh=``): one Trainer per rank, each on its rank's device, every step the
+DP step of ``parallel/dp.py`` (the global batch's draws, this rank's rows,
+gradients averaged over the ranks), so a run equals the one-device run at
+the same global batch. Each rank takes its rows of each global batch
+(``local_batches=False``) or gets only them from a host-sharded loader
+(``local_batches=True``). A resident split lives as each rank's ⌈N/D⌉
+rows and each dispatch exchanges the rows its batches need; residency is
+decided on the split's total bytes and is off for host-sharded loaders.
+The augment draw is the global batch's, each rank cropping its rows, so
+the crops depend neither on the world size nor on ``steps_per_dispatch``.
+Rank 0 alone writes metrics.csv, events, μ exports and checkpoints, and
+the others wait at a barrier after each save; every rank restores the same
+checkpoint on resume; the throughput meter counts global images.
 
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
@@ -87,6 +101,7 @@ class Trainer:
                  steps_per_dispatch: int = 1,
                  device=None,
                  mesh=None,
+                 local_batches: bool = False,
                  resident_eval: str = 'auto',
                  resident_eval_max_bytes: int = 768 * 2**20,
                  resident_train: str = 'auto',
@@ -97,23 +112,42 @@ class Trainer:
                            ('resident_train', resident_train)):
             if mode not in ('auto', 'off'):
                 raise ValueError(f"{name} must be 'auto' or 'off'")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f'device {device} is not the mesh rank\'s '
+                                 f'device {mesh.device}')
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         apply_precision(model_cfg)
         self.cfg = train_cfg
+        self.mesh = mesh
+        self.local_batches = local_batches and mesh is not None
+        self._is_main = mesh is None or mesh.is_main
+        # the DP semantics every step maker takes (None: one device)
+        dp = None
+        if mesh is not None:
+            from gltvae_torch.parallel.dp import DataParallel
+            dp = DataParallel(mesh)
+        self._dp = dp
         self.nan_check_every = nan_check_every
         self.steps_per_dispatch = max(1, steps_per_dispatch)
         model = init_model(model_cfg, train_cfg, mu_init, self.device)
         self.model = model
         self.state = create_train_state(model, train_cfg)
-        self._sup_step, self._unsup_step = make_train_steps(model, train_cfg)
+        self._replicate()
+        self._sup_step, self._unsup_step = make_train_steps(model, train_cfg,
+                                                            dp)
         # a chunk of n > 1 steps: the same steps in a loop, each kind as
         # its flag says (uniform chunks are mixed chunks of one kind)
-        self._chunk_step = (make_mixed_scan_train_step(model, train_cfg)
+        self._chunk_step = (make_mixed_scan_train_step(model, train_cfg, dp)
                             if self.steps_per_dispatch > 1 else None)
-        self._scan_eval = make_scan_eval_step(model, train_cfg)
-        self._scan_elbo = make_scan_elbo_step(model, train_cfg)
-        self._resident_eval_step = make_resident_eval_step(model, train_cfg)
-        self._resident_elbo_step = make_resident_elbo_step(model, train_cfg)
+        self._scan_eval = make_scan_eval_step(model, train_cfg, dp)
+        self._scan_elbo = make_scan_elbo_step(model, train_cfg, dp)
+        self._resident_eval_step = make_resident_eval_step(model, train_cfg,
+                                                           dp)
+        self._resident_elbo_step = make_resident_elbo_step(model, train_cfg,
+                                                           dp)
         self._debug_nans = debug_nans
         if debug_nans:
             for name in ('_sup_step', '_unsup_step', '_chunk_step',
@@ -121,7 +155,7 @@ class Trainer:
                          '_resident_elbo_step'):
                 fn = getattr(self, name)
                 if fn is not None:
-                    setattr(self, name, nan_checked(fn))
+                    setattr(self, name, nan_checked(fn, mesh))
         # 'auto' = resident when the splits fit their budget; 'off' = always
         # shipped from the host
         self._resident_eval_mode = resident_eval
@@ -135,14 +169,29 @@ class Trainer:
                      if checkpoint_dir else None)
         self._steps_saved: set = set()  # steps persisted by THIS run
         self._gating_hist = None        # lazy {epoch: mu} snapshot store
-        self.metrics = MetricsLogger(metrics_path,
-                                     tensorboard_dir=tensorboard_dir)
+        # every rank keeps the rows; rank 0 writes them
+        self.metrics = MetricsLogger(
+            metrics_path if self._is_main else None,
+            tensorboard_dir=tensorboard_dir if self._is_main else None)
         self.throughput = Throughput()
         # eval draws: one generator from seed+1, advanced batch by batch
         self._eval_gen = torch.Generator(device=self.device)
         self._eval_gen.manual_seed(step_seed(train_cfg.seed + 1, 0))
 
-    def _place(self, batch):
+    def _replicate(self) -> None:
+        """Rank 0's state on every rank (a collective; no-op off a mesh)."""
+        if self.mesh is not None:
+            from gltvae_torch.parallel.dp import shard_state
+            shard_state(self.state, self.mesh)
+
+    def _place(self, batch, stacked: bool = False):
+        """A host batch on the device: on a mesh, this rank's rows of it
+        (batch axis 1 when `stacked`)."""
+        if self.mesh is not None:
+            from gltvae_torch.parallel.dp import (shard_batch,
+                                                  shard_stacked_batch)
+            batch = (shard_stacked_batch if stacked else shard_batch)(
+                batch, self.mesh, local=self.local_batches)
         x, y = batch
         x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         y = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
@@ -151,7 +200,8 @@ class Trainer:
     def _augment(self, u8: torch.Tensor) -> torch.Tensor:
         """Crop + flip + scale a padded train batch, [B, ...] or stacked
         [n, B, ...], on the device: one launch. Inner step i of a dispatch
-        draws from global step ``state.step + i``."""
+        draws the global batch's crops from global step ``state.step + i``;
+        on a mesh `u8` is this rank's rows and it crops those."""
         pad, size = self.cfg.augment_pad, self.model.cfg.image_size
         expect = size + 2 * pad
         if u8.shape[-3] != expect or u8.shape[-2] != expect:
@@ -161,14 +211,20 @@ class Trainer:
                 f'loader produced {u8.shape[-3]}x{u8.shape[-2]} — set '
                 f'DataConfig.augment_pad to the same value')
         n = u8.shape[0] if u8.dim() == 5 else 1
-        gens = []
+        world = 1 if self.mesh is None else self.mesh.world
+        B, H, W = u8.shape[-4] * world, u8.shape[-3], u8.shape[-2]
+        rows = slice(None) if self.mesh is None else self.mesh.rows(B)
+        draws = []
         for i in range(n):
             g = torch.Generator(device=self.device)
             g.manual_seed(step_seed(self.cfg.seed + 2, self.state.step + i))
-            gens.append(g)
+            draws.append(preprocess.draw_crop_flip(g, B, H, W, size))
+        dy, dx, fl = (torch.stack(v)[:, rows].contiguous()
+                      for v in zip(*draws))
         if u8.dim() == 5:
-            return preprocess.fused_augment_stacked(u8, gens, size)
-        return preprocess.fused_augment(u8, gens[0], size)
+            return preprocess.fused_augment_stacked_given(u8, dy, dx, fl,
+                                                          size)
+        return preprocess.fused_augment_given(u8, dy[0], dx[0], fl[0], size)
 
     @torch.no_grad()
     def load_params(self, state_dict) -> None:
@@ -178,8 +234,10 @@ class Trainer:
         frozen μ (fixed gate schemes) takes the loaded value and stays
         frozen. Called on a new Trainer, this is a warm start with fresh
         moments, as the reference's: it cannot resume its optimizer
-        either."""
+        either. On a mesh it is collective: every rank calls it, and rank
+        0's loaded parameters go to all."""
         self.model.load_state_dict(state_dict, strict=True)
+        self._replicate()
 
     # ------------------------------ schedule ------------------------------
     def epoch_schedule(self, loaders) -> tuple[int, int, int]:
@@ -284,7 +342,8 @@ class Trainer:
                     bx, by = zip(*(next(sup_iter if f else unsup_iter)
                                    for f in chunk))
                     if n > 1:                       # one stacked copy
-                        x, y = self._place((np.stack(bx), np.stack(by)))
+                        x, y = self._place((np.stack(bx), np.stack(by)),
+                                           stacked=True)
                     else:
                         x, y = self._place((bx[0], by[0]))
                     if self.cfg.augment_pad > 0:
@@ -297,7 +356,8 @@ class Trainer:
                                    else self._unsup_step)
                         self.state, ms = step_fn(self.state, x, y,
                                                  self.gating_temp)
-                    n_imgs = n * len(bx[0])
+                    n_imgs = n * len(bx[0]) * (
+                        self.mesh.world if self.local_batches else 1)
                 stacked = res_train is not None or n > 1    # metrics [n]
                 pending_gates.append(ms['c_nan'].any())
                 self.throughput.step(n_imgs)
@@ -356,7 +416,10 @@ class Trainer:
 
     def _snapshot_gating(self, param_dir: str, epoch: int) -> None:
         """Append this epoch's μ to gating_history.npz ([n, zc, y] + epochs);
-        rewritten whole each epoch, extended on resume."""
+        rewritten whole each epoch, extended on resume. Rank 0's job on a
+        mesh."""
+        if not self._is_main:
+            return
         path = os.path.join(param_dir, 'gating_history.npz')
         if self._gating_hist is None:
             self._gating_hist = {}
@@ -377,17 +440,23 @@ class Trainer:
         os.replace(tmp, path)
 
     def _save(self, param_dir: Optional[str], model_id: str, metrics: dict):
+        """Checkpoint and μ export, by rank 0 on a mesh; the other ranks
+        wait for them at a barrier."""
         metrics = {k: v for k, v in metrics.items() if np.isfinite(v)}
         step = int(self.state.step)
         if self.ckpt is not None and step not in self._steps_saved:
             # a leftover same-step checkpoint of an earlier run is replaced
-            self.ckpt.save(self.state, metrics=metrics)
+            if self._is_main:
+                self.ckpt.save(self.state, metrics=metrics)
             self._steps_saved.add(step)
-        if param_dir and self.model.cfg.gate_type == 'learnable':
+        if param_dir and self.model.cfg.gate_type == 'learnable' \
+                and self._is_main:
             y_dim = self.model.cfg.y_dim
             names = (CELEBA_EASY_LABELS if y_dim == len(CELEBA_EASY_LABELS)
                      else list(CELEBA_LABELS)[:y_dim])
             export_gating_matrix(self.model.mu, param_dir, model_id, names)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ----------------------------- resident -----------------------------
     def _resident_split(self, loader, budget: int):
@@ -409,7 +478,13 @@ class Trainer:
                         (x0.nbytes + y0.nbytes) * len(ds) >> 20,
                         budget >> 20)
             return None
-        x, y = self._place(ds.fetch(np.arange(len(ds))))
+        if self.mesh is not None:
+            # this rank's ⌈N/D⌉ rows, the labels whole
+            from gltvae_torch.parallel.dp import place_resident_split
+            x, y = place_resident_split(*ds.fetch(np.arange(len(ds))),
+                                        self.mesh)
+        else:
+            x, y = self._place(ds.fetch(np.arange(len(ds))))
         self._resident_data[id(loader)] = (loader, x, y)
         return x, y
 
@@ -456,12 +531,13 @@ class Trainer:
         if fn is None:
             if kind == 'mixed':
                 fn = make_resident_mixed_scan_train_step(self.model,
-                                                         self.cfg)
+                                                         self.cfg, self._dp)
             else:
-                fns = make_resident_scan_train_steps(self.model, self.cfg)
+                fns = make_resident_scan_train_steps(self.model, self.cfg,
+                                                     self._dp)
                 fn = fns[kind == 'unsup']
             if self._debug_nans:
-                fn = nan_checked(fn)
+                fn = nan_checked(fn, self.mesh)
             self._resident_train_fns[kind] = fn
         return fn
 
@@ -493,7 +569,7 @@ class Trainer:
         while i < n_batches:
             n = min(self.steps_per_dispatch, n_batches - i)
             bx, by = zip(*(next(it) for _ in range(n)))
-            yield self._place((np.stack(bx), np.stack(by)))
+            yield self._place((np.stack(bx), np.stack(by)), stacked=True)
             i += n
 
     def evaluate(self, loader, gating_temp: Optional[float] = None) -> float:

@@ -28,6 +28,10 @@ so they equal the per-batch calls bit for bit:
   device and each batch is gathered from it by an [n, B] index tensor
   (``index_select`` of uint8 rows, then the dequant kernel), so the
   gathered bytes equal what the host would have shipped.
+
+Every maker takes ``dp``, a ``parallel.dp.DataParallel``, which makes its
+steps the data-parallel ones of parallel/dp.py (gltvae's
+``make_parallel_*``); without it they run on one device.
 """
 
 from __future__ import annotations
@@ -106,10 +110,13 @@ def remat(fn: Callable, mode: str) -> Callable:
     return wrapped
 
 
-def make_train_steps(model: CCVAE, train_cfg: TrainConfig
+def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None
                      ) -> Tuple[Callable, Callable]:
     """(sup_step, unsup_step) for `model`; each updates the state in place
-    and returns it with the step's metrics."""
+    and returns it with the step's metrics. With `dp`
+    (``parallel.dp.DataParallel``) they are the data-parallel steps: x, y
+    are this rank's rows, `noise` is the global batch's draws, and the
+    gradients and metrics are averaged over the ranks."""
     gating_reg = train_cfg.gating_reg if model.cfg.mu_trainable else 0.0
     k = train_cfg.classifier_mc_samples
     size = model.cfg.image_size
@@ -126,18 +133,27 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig
 
     def _apply(state: TrainState, loss, aux):
         params = state.trainable()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        keras_adam_update(state, dict(zip(params, grads)), train_cfg.lr,
-                          eps=train_cfg.adam_eps)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        metrics = _metrics(loss, aux)
+        if dp is not None:
+            grads, metrics = dp.average(grads, metrics)
+        keras_adam_update(state, grads, train_cfg.lr, eps=train_cfg.adam_eps)
         state.step += 1
-        return state, _metrics(loss, aux)
+        return state, metrics
+
+    def _noise(state: TrainState, b: int, supervised: bool, noise):
+        if dp is not None:
+            return dp.local_noise(state, b, supervised, k, noise)
+        if noise is None:
+            noise = draw_noise(state.model, b, supervised, k,
+                               state.next_generator())
+        return noise
 
     def sup_step(state: TrainState, x, y, gating_temp,
                  noise: Optional[dict] = None):
         x = _prep_image(x, size)
-        if noise is None:
-            noise = draw_noise(state.model, x.shape[0], True, k,
-                               state.next_generator())
+        noise = _noise(state, x.shape[0], True, noise)
         loss, aux = sup_loss(state.model, x, y.to(torch.float32),
                              Temps(gating=gating_temp), noise)
         return _apply(state, loss, aux)
@@ -146,9 +162,7 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig
                    noise: Optional[dict] = None):
         del y  # unsupervised: labels unused
         x = _prep_image(x, size)
-        if noise is None:
-            noise = draw_noise(state.model, x.shape[0], False, k,
-                               state.next_generator())
+        noise = _noise(state, x.shape[0], False, noise)
         loss, aux = unsup_loss(state.model, x, Temps(gating=gating_temp),
                                noise)
         return _apply(state, loss, aux)
@@ -167,12 +181,12 @@ def _run_chunk(sup, unsup, state: TrainState, batches: Iterable,
     return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
 
-def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig
-                               ) -> Callable:
+def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
+                               dp=None) -> Callable:
     """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]):
     inner step j runs the sup step where sup_mask[j], else the unsup step,
     on xs[j], ys[j]."""
-    sup, unsup = make_train_steps(model, train_cfg)
+    sup, unsup = make_train_steps(model, train_cfg, dp)
 
     def chunk(state: TrainState, xs, ys, sup_mask: Sequence[bool],
               gating_temp):
@@ -184,11 +198,11 @@ def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig
     return chunk
 
 
-def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig
+def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None
                           ) -> Tuple[Callable, Callable]:
     """Uniform chunks (scan_sup, scan_unsup):
     (state, xs, ys, gating_temp) -> (state, metrics [n])."""
-    chunk = make_mixed_scan_train_step(model, train_cfg)
+    chunk = make_mixed_scan_train_step(model, train_cfg, dp)
 
     def make(sup: bool):
         def scan(state: TrainState, xs, ys, gating_temp):
@@ -197,78 +211,115 @@ def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig
     return make(True), make(False)
 
 
-def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig
-                                   ) -> Tuple[Callable, Callable]:
+def _resident_batches(dp, images, labels, idxs):
+    """(x, y) of each index row of `idxs` [n, B] from a resident split,
+    gathered on the device; with `dp`, this rank's rows of each, exchanged
+    over the mesh (``parallel.dp.gather_rows``)."""
+    if dp is not None:
+        return dp.resident_batches(images, labels, idxs)
+    return ((images.index_select(0, i), labels.index_select(0, i))
+            for i in idxs)
+
+
+def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig,
+                                   dp=None) -> Tuple[Callable, Callable]:
     """Device-resident training chunks (scan_sup, scan_unsup):
     (state, images [N, H, W, C] u8, labels [N, y] f32, idxs [n, B] int,
     gating_temp) -> (state, metrics [n]). Inner step j trains on rows
-    idxs[j], gathered on the device."""
-    sup, unsup = make_train_steps(model, train_cfg)
+    idxs[j], gathered on the device. With `dp`, images are this rank's
+    resident rows (``parallel.dp.place_resident_split``)."""
+    sup, unsup = make_train_steps(model, train_cfg, dp)
 
     def make(kind: bool):
         def scan(state: TrainState, images, labels, idxs, gating_temp):
-            batches = ((images.index_select(0, i), labels.index_select(0, i))
-                       for i in idxs)
+            batches = _resident_batches(dp, images, labels, idxs)
             return _run_chunk(sup, unsup, state, batches,
                               [kind] * len(idxs), gating_temp)
         return scan
     return make(True), make(False)
 
 
-def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig
-                                        ) -> Callable:
+def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
+                                        dp=None) -> Callable:
     """Semi-supervised resident chunks: (state, images_sup, labels_sup,
     images_unsup, labels_unsup, idxs [n, B], sup_mask [n], gating_temp) ->
     (state, metrics [n]). Row j of idxs indexes the sup split where
     sup_mask[j], else the unsup split: the row stream the host path's
-    ``next(sup_iter if flag else unsup_iter)`` consumes."""
-    sup, unsup = make_train_steps(model, train_cfg)
+    ``next(sup_iter if flag else unsup_iter)`` consumes. With `dp`, one
+    exchange a split gathers the rows of its steps."""
+    sup, unsup = make_train_steps(model, train_cfg, dp)
 
     def chunk(state: TrainState, images_sup, labels_sup, images_unsup,
               labels_unsup, idxs, sup_mask: Sequence[bool], gating_temp):
         if len(idxs) != len(sup_mask):
             raise ValueError(f'{len(idxs)} index rows and {len(sup_mask)} '
                              'flags')
-        batches = (((images_sup if m else images_unsup).index_select(0, i),
-                    (labels_sup if m else labels_unsup).index_select(0, i))
-                   for i, m in zip(idxs, sup_mask))
+        if dp is None:
+            batches = (((images_sup if m else images_unsup)
+                        .index_select(0, i),
+                        (labels_sup if m else labels_unsup)
+                        .index_select(0, i))
+                       for i, m in zip(idxs, sup_mask))
+        else:
+            got = {}
+            for kind, images, labels in ((True, images_sup, labels_sup),
+                                         (False, images_unsup,
+                                          labels_unsup)):
+                js = [j for j, m in enumerate(sup_mask) if m == kind]
+                if js:
+                    got.update(zip(js, dp.resident_batches(
+                        images, labels, idxs[js])))
+            batches = (got[j] for j in range(len(sup_mask)))
         return _run_chunk(sup, unsup, state, batches, sup_mask, gating_temp)
     return chunk
 
 
-def make_eval_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
+def make_eval_step(model: CCVAE, train_cfg: TrainConfig,
+                   dp=None) -> Callable:
     """(model, x, y, generator, gating_temp) -> batch accuracy (0-d tensor).
-    Stochastic unless train_cfg.deterministic_eval."""
+    Stochastic unless train_cfg.deterministic_eval. With `dp`, x and y are
+    this rank's rows, the draws are the global batch's, and the accuracy
+    is the global batch's."""
     det = train_cfg.deterministic_eval
     size = model.cfg.image_size
 
     @torch.no_grad()
     def eval_step(model: CCVAE, x, y, generator, gating_temp):
         x = _prep_image(x, size)
-        return model.classifier_accuracy(x, y.to(torch.float32),
-                                         Temps(gating=gating_temp),
-                                         deterministic=det,
-                                         generator=generator)
+        temps = Temps(gating=gating_temp)
+        if dp is None:
+            return model.classifier_accuracy(x, y.to(torch.float32), temps,
+                                             deterministic=det,
+                                             generator=generator)
+        noise = None if det else dp.eval_noise(model, x.shape[0], generator)
+        y_hat = model.predict_labels(x, temps, det, noise)
+        return dp.mean_rows((y_hat == y.to(y_hat.dtype)).to(torch.float32))
     return eval_step
 
 
-def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
-    """(model, x, generator, gating_temp) -> mean unsupervised ELBO."""
+def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig,
+                        dp=None) -> Callable:
+    """(model, x, generator, gating_temp) -> mean unsupervised ELBO. With
+    `dp`: this rank's rows, the global batch's draws, the mean over the
+    ranks."""
     size = model.cfg.image_size
 
     @torch.no_grad()
     def elbo_step(model: CCVAE, x, generator, gating_temp):
         x = _prep_image(x, size)
-        _, aux = model.unsup_loss(x, Temps(gating=gating_temp),
-                                  generator=generator)
-        return aux.elbo
+        temps = Temps(gating=gating_temp)
+        if dp is None:
+            return model.unsup_loss(x, temps, generator=generator)[1].elbo
+        noise = dp.elbo_noise(model, x.shape[0], generator)
+        return dp.mean(model.unsup_loss(x, temps, noise=noise)[1].elbo)
     return elbo_step
 
 
-def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
+def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig,
+                        dp=None) -> Callable:
     """(model, xs, ys, generator, gating_temp) -> accs [n] over stacked
     [n, B, ...] batches: n make_eval_step calls with one generator."""
-    ev = make_eval_step(model, train_cfg)
+    ev = make_eval_step(model, train_cfg, dp)
 
     def scan(model: CCVAE, xs, ys, generator, gating_temp):
         return torch.stack([ev(model, x, y, generator, gating_temp)
@@ -276,10 +327,11 @@ def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
     return scan
 
 
-def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
+def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig,
+                        dp=None) -> Callable:
     """(model, xs, generator, gating_temp) -> elbos [n] over stacked
     batches: n make_elbo_eval_step calls with one generator."""
-    el = make_elbo_eval_step(model, train_cfg)
+    el = make_elbo_eval_step(model, train_cfg, dp)
 
     def scan(model: CCVAE, xs, generator, gating_temp):
         return torch.stack([el(model, x, generator, gating_temp)
@@ -287,30 +339,33 @@ def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig) -> Callable:
     return scan
 
 
-def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig
-                            ) -> Callable:
+def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig,
+                            dp=None) -> Callable:
     """Device-resident eval: (model, images, labels, idxs [n, B],
     generator, gating_temp) -> accs [n], batch j gathered from rows
     idxs[j]; the generator advances as in the per-batch path."""
-    ev = make_eval_step(model, train_cfg)
+    ev = make_eval_step(model, train_cfg, dp)
 
     def resident(model: CCVAE, images, labels, idxs, generator,
                  gating_temp):
-        return torch.stack([ev(model, images.index_select(0, i),
-                               labels.index_select(0, i), generator,
-                               gating_temp) for i in idxs])
+        return torch.stack([ev(model, x, y, generator, gating_temp)
+                            for x, y in _resident_batches(dp, images, labels,
+                                                          idxs)])
     return resident
 
 
-def make_resident_elbo_step(model: CCVAE, train_cfg: TrainConfig
-                            ) -> Callable:
+def make_resident_elbo_step(model: CCVAE, train_cfg: TrainConfig,
+                            dp=None) -> Callable:
     """Device-resident ELBO: (model, images, idxs [n, B], generator,
     gating_temp) -> elbos [n]."""
-    el = make_elbo_eval_step(model, train_cfg)
+    el = make_elbo_eval_step(model, train_cfg, dp)
 
     def resident(model: CCVAE, images, idxs, generator, gating_temp):
-        return torch.stack([el(model, images.index_select(0, i), generator,
-                               gating_temp) for i in idxs])
+        xs = ((x for x, _ in dp.resident_batches(images, None, idxs))
+              if dp is not None else
+              (images.index_select(0, i) for i in idxs))
+        return torch.stack([el(model, x, generator, gating_temp)
+                            for x in xs])
     return resident
 
 

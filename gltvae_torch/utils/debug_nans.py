@@ -20,12 +20,20 @@ the failing backward node). The op-by-op check is on only for that replay,
 so a clean dispatch never stops at a masked NaN (the μ≥1 hardening in
 ``ops/sampling.py``). A clean dispatch pays a copy of the state and one
 wait for the device.
+
+On a mesh (``nan_checked(fn, mesh)``) the dispatch holds collectives, so
+every rank must replay or none: the "a NaN is present" decision is
+all-reduced (MAX) first. The replay then records the first NaN op instead
+of raising at it, so that every rank reaches the replay's collectives,
+and each rank raises after it: naming its first NaN op, or saying that
+its own replay made none (the NaN came from another rank's rows through
+the averaged gradient).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -41,14 +49,22 @@ _UNINITIALIZED = frozenset({'empty', 'empty_like', 'empty_strided',
 
 
 class _FirstNaN(TorchDispatchMode):
-    """Raises FloatingPointError after the first op with a NaN output."""
+    """Raises FloatingPointError after the first op with a NaN output, or,
+    with ``record``, keeps its message in ``first`` and goes on."""
+
+    def __init__(self, record: bool = False):
+        super().__init__()
+        self.record = record
+        self.first: Optional[str] = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.overloadpacket.__name__ not in _UNINITIALIZED and any(
-                bool(t.isnan().any()) for t in _floats(out)):
-            raise FloatingPointError(
-                f'invalid value (nan) encountered in {func}')
+        if self.first is None \
+                and func.overloadpacket.__name__ not in _UNINITIALIZED \
+                and any(bool(t.isnan().any()) for t in _floats(out)):
+            self.first = f'invalid value (nan) encountered in {func}'
+            if not self.record:
+                raise FloatingPointError(self.first)
         return out
 
 
@@ -92,22 +108,33 @@ def _restore(saved) -> None:
             obj.set_state(snap)
 
 
-def nan_checked(fn: Callable) -> Callable:
+def nan_checked(fn: Callable, mesh=None) -> Callable:
     """`fn` (a dispatch taking a TrainState or a torch.Generator among its
     positional arguments, or neither) that raises FloatingPointError where
-    ``jax_debug_nans`` would; see the module docstring."""
+    ``jax_debug_nans`` would; on a ``parallel.mesh.Mesh``, on every rank
+    together. See the module docstring."""
     @functools.wraps(fn)
     def run(*args, **kwargs):
         saved = _snapshot(args)
         out = fn(*args, **kwargs)
         checked = _floats(out) + [t for a in args if isinstance(a, TrainState)
                                   for t in _state_tensors(a)]
-        if not checked or not bool(_flat(checked).isnan().any()):
+        found = bool(checked) and _flat(checked).isnan().any()
+        if mesh is not None:
+            found = mesh.all_reduce_(torch.as_tensor(
+                found, dtype=torch.float32, device=mesh.device).reshape(1),
+                'max')[0]
+        if not bool(found):
             return out
         _restore(saved)
-        with torch.autograd.set_detect_anomaly(True), _FirstNaN():
+        first = _FirstNaN(record=mesh is not None)
+        with torch.autograd.set_detect_anomaly(True, check_nan=mesh is None), \
+                first:
             fn(*args, **kwargs)
+        if first.first is not None:
+            raise FloatingPointError(first.first)
         raise FloatingPointError(
             f'invalid value (nan) in the output of {fn.__name__}; the op by '
-            f'op replay made none')
+            f'op replay made none' + (' on this rank' if mesh is not None
+                                      else ''))
     return run

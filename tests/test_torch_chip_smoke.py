@@ -125,9 +125,16 @@ def test_the_bf16_check_catches_a_dropped_bias(monkeypatch):
 
 def _rehearse(monkeypatch, tmp_path):
     """Set chip_smoke up to run on the CPU at a tiny corpus (64/16/16 JPEGs,
-    batch 8: the same launch counts as 2,048/512/512 at 256). On the CPU
-    the wrappers take the plain versions and count nothing, so each call
-    where the card would launch is counted here."""
+    batch 8: the same launch counts as 2,048/512/512 at 256), then run
+    phases 16-22."""
+    _on_the_cpu(monkeypatch, tmp_path)
+    return chip_smoke.celeba_phases(torch.device('cpu'), 'cpu')
+
+
+def _on_the_cpu(monkeypatch, tmp_path):
+    """chip_smoke at batch 8 under `tmp_path`. On the CPU the wrappers take
+    the plain versions and count nothing, so each call where the card
+    would launch is counted here."""
     import gltvae_torch.train.steps as ts
     monkeypatch.setattr(chip_smoke, 'BATCH', 8)
     monkeypatch.setattr(chip_smoke, 'CORPUS', (64, 16, 16))
@@ -145,7 +152,6 @@ def _rehearse(monkeypatch, tmp_path):
     monkeypatch.setattr(preprocess, 'dequant', counted_dequant)
     monkeypatch.setattr(ts, 'dequant', counted_dequant)
     monkeypatch.setattr(preprocess, '_augment', counted_augment)
-    return chip_smoke.celeba_phases(torch.device('cpu'), 'cpu')
 
 
 def test_celeba_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
@@ -190,3 +196,36 @@ def test_host_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
         assert f'[phase {n}]' in printed
     for line in ('slice_debug_nans:', 'slice_grain:', 'bench: {'):
         assert line in printed
+
+
+def test_dp_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phases 30-31 on the CPU at batch 8 (64/16/16 rows: phase 5's 16
+    steps and 6 eval batches): the mesh of one (gloo here, NCCL on the
+    card) equals the plain run bit for bit with its 22 launches; two
+    spawned gloo ranks (which count the plain calls themselves) launch 22
+    a rank on the resident path and 4 augment + 6 dequant on the augmented
+    one, crop their rows of the one-process crops, and hold phase 31's
+    tolerances."""
+    from gltvae_torch.data.synthetic import synthetic_splits
+    _on_the_cpu(monkeypatch, tmp_path)
+    cpu = torch.device('cpu')
+    model_cfg = tcfg.ModelConfig(image_size=S, z_dim=8, y_dim=4,
+                                 enc_features=(8, 8), enc_hidden=16,
+                                 dec_features=(16, 8))
+    kw = dict(perc_supervision=0.5, n_epochs=2, batch_size=B,
+              classifier_mc_samples=4)
+    train_cfg = tcfg.TrainConfig(**kw)
+    train_a = tcfg.TrainConfig(augment_pad=4, **kw)
+    splits, splits_a = (synthetic_splits(
+        n_train=8 * B, n_valid=2 * B, n_test=2 * B, sup_frac=0.5,
+        image_size=S, y_dim=4, train_pad=pad) for pad in (0, 4))
+    run = chip_smoke.train_and_test('main path', model_cfg, train_cfg,
+                                    splits, cpu, 'chip_smoke')
+    ref5 = dict(state=run['trainer'].state.state_dict(), rows=run['rows'],
+                launches=run['launches'], step_med=1.0)
+    out = chip_smoke.dp_phases(cpu, 'cpu', ref5, model_cfg, train_cfg,
+                               splits, model_cfg, train_a, splits_a)
+    assert out == {'nccl_1': 22, 'gloo_2': 22, 'gloo_2_augment': (4, 6)}
+    printed = capsys.readouterr().out
+    assert '[phase 30]' in printed and printed.count('[phase 31]') == 4
+    assert 'slice_mesh1:' in printed and 'slice_dp:' in printed

@@ -126,29 +126,36 @@ def test_model_config_json_read_by_both(tmp_path):
 @pytest.mark.parametrize('bad', [dict(compute_dtype='bfloat16'),
                                  dict(input_s2d=True), dict(output_s2d=True)])
 def test_unsupported_model_values_raise(bad):
-    """bf16 and the s2d flags, once unsupported, now build a model; the one
-    value still raising is a device mesh (ROADMAP Queue 1 item 12)."""
+    """bf16 and the s2d flags, once unsupported, now build a model, and so
+    does each on a device mesh (parallel/mesh.py), once unsupported too."""
     cfg = tcfg.ModelConfig(**bad)
     tcfg.check_supported(cfg)
     model = TCCVAE(cfg, mu_init=np.eye(18))
     assert model.encoder.input_s2d == cfg.input_s2d
     assert model.decoder.output_s2d == cfg.output_s2d
     assert model.encoder.dtype == model.classifier.dtype == cfg.dtype
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcfg.check_supported(cfg, mesh=object())
+    tcfg.check_supported(cfg, tcfg.TrainConfig(), mesh=_mesh(2))
 
 
 @pytest.mark.parametrize('train,data', [
     (dict(remat='full'), {}), (dict(augment_pad=2), dict(augment_pad=2)),
     ({}, dict(device_resize=True))])
 def test_unsupported_train_data_values_raise(train, data):
-    """remat, augment_pad and device_resize, once unsupported, now pass;
-    only a mesh raises, naming its ROADMAP item."""
+    """remat, augment_pad and device_resize, once unsupported, now pass,
+    on a mesh too; on a mesh only a global batch that does not split over
+    the ranks raises, with gltvae's placement message."""
     args = (tcfg.ModelConfig(), tcfg.TrainConfig(**train),
             tcfg.DataConfig(**data))
     tcfg.check_supported(*args)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcfg.check_supported(*args, mesh=object())
+    tcfg.check_supported(*args, mesh=_mesh(4))
+    with pytest.raises(ValueError, match='not divisible by process_count 3'):
+        tcfg.check_supported(*args, mesh=_mesh(3))
+
+
+def _mesh(world):
+    """A rank-0 record of a `world`-rank mesh (no process group)."""
+    from gltvae_torch.parallel.mesh import Mesh
+    return Mesh(rank=0, world=world, device=torch.device('cpu'))
 
 
 # ----------------------------- bridge -----------------------------

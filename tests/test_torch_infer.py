@@ -199,11 +199,13 @@ def test_model_config_from_flags_and_recorded_notes(tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, photos):
-    """--mesh is not ported; a folder of *_best.h5 files is read as a
-    reference checkpoint (tests/test_torch_warm_start.py), here an empty
-    file that h5py refuses; a folder with neither exits with a message."""
+    """--mesh, once unported, now runs (a mesh of one here; two ranks in
+    tests/test_torch_dp_infer.py) up to the missing checkpoint; a folder of
+    *_best.h5 files is read as a reference checkpoint
+    (tests/test_torch_warm_start.py), here an empty file that h5py
+    refuses; a folder with neither exits with a message."""
     base = ['--images', str(photos), '--device', 'cpu']
-    with pytest.raises(NotImplementedError, match='item 12'):
+    with pytest.raises(SystemExit, match='no checkpoints/'):
         tinfer.main(['--checkpoint', str(tmp_path), '--mesh'] + base)
     (tmp_path / 'encoder_model_best.h5').write_bytes(b'')
     with pytest.raises(OSError):

@@ -1,0 +1,277 @@
+"""Ranks of the port's data-parallel tests (tests/test_torch_dp*.py).
+
+Torch only, so the spawned interpreters never import JAX. ``launch``
+spawns `world` gloo ranks on the CPU, each running one scenario of
+``SCENARIOS`` on its rank of the mesh and saving what it returns to
+``<out>/<scenario>_rank<r>.pt``; each scenario also runs in the test's own
+process with ``mesh=None`` (plain one-device steps, no group), which is
+the reference the ranks are held to."""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+import gltvae_torch.config as tcfg
+
+SMALL = dict(image_size=16, z_dim=8, y_dim=4, enc_features=(8, 8),
+             enc_hidden=16, dec_features=(16, 8))
+B, K, LR = 16, 4, 1e-3
+
+
+def configs(**train):
+    """The tiny model of tests/test_shardmap.py and its TrainConfig."""
+    return (tcfg.ModelConfig(**SMALL),
+            tcfg.TrainConfig(batch_size=B, lr=LR, classifier_mc_samples=K,
+                             **train))
+
+
+def launch(scenario: str, world: int, tmp, timeout_s: float = 120.0,
+           join: bool = True, **kw) -> list:
+    """Run `scenario` on `world` gloo ranks (a file:// store under `tmp`);
+    returns each rank's result, in rank order. Each rank runs torch on this
+    process's thread count: the CPU kernels' sums follow it, so only then
+    does a rank repeat this process's arithmetic bit for bit. With
+    ``join=False`` the ranks join no group: the scenario gets ``mesh=None``
+    and its rank's (rank, world, store) as ``where=`` and joins by
+    itself."""
+    from gltvae_torch.parallel.mesh import spawn
+    out = os.path.join(str(tmp), f'{scenario}_{world}')
+    os.makedirs(out, exist_ok=True)
+    spawn(_rank, world, (os.path.join(out, 'store'), out, scenario, join,
+                         torch.get_num_threads(), kw), timeout_s)
+    return [torch.load(os.path.join(out, f'rank{r}.pt'), weights_only=False)
+            for r in range(world)]
+
+
+def _rank(rank: int, world: int, store: str, out: str, scenario: str,
+          join: bool, threads: int, kw: dict) -> None:
+    from gltvae_torch.parallel import mesh as pmesh
+    torch.set_num_threads(threads)
+    try:
+        if join:
+            pmesh.initialize_multihost(f'file://{store}', world, rank,
+                                       device='cpu')
+            mesh = pmesh.create_mesh('cpu')
+            assert (mesh.rank, mesh.world, mesh.backend) == (rank, world,
+                                                             'gloo')
+            result = SCENARIOS[scenario](mesh, **kw)
+        else:
+            result = SCENARIOS[scenario](None, where=(rank, world, store),
+                                         **kw)
+        torch.save(result, os.path.join(out, f'rank{rank}.pt'))
+    finally:
+        pmesh.shutdown()
+
+
+def _state(state) -> dict:
+    return {k: v for k, v in state.state_dict().items()}
+
+
+def _rows(mesh, a):
+    return a if mesh is None else a[mesh.rows(len(a))]
+
+
+def steps(mesh, params: dict, batches: list, kinds: list,
+          chunk_mask: list, noise: Optional[list] = None,
+          train: Optional[dict] = None) -> dict:
+    """One step of each of `kinds` (True: sup) on `batches` (global (x, y)
+    numpy pairs) from `params`, then one mixed chunk over the next
+    len(chunk_mask) batches; each step's noise drawn from the state's
+    generator, or the global draws `noise` (one dict a step) injected.
+    Returns each step's metrics and the final state."""
+    from gltvae_torch.models.ccvae import CCVAE
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.train import steps as tsteps
+    from gltvae_torch.train.state import create_train_state
+    model_cfg, train_cfg = configs(**(train or {}))
+    model = CCVAE(model_cfg, mu_init=params['mu'].numpy())
+    model.load_state_dict(params)
+    state = create_train_state(model, train_cfg)
+    dp = None
+    if mesh is not None:
+        shard_state(state, mesh)
+        dp = DataParallel(mesh)
+    draw = tsteps.draw_noise
+    if noise is not None:
+        draws = iter(noise)
+        tsteps.draw_noise = lambda *a, **k: {
+            n: torch.as_tensor(v) for n, v in next(draws).items()}
+    try:
+        sup, unsup = tsteps.make_train_steps(model, train_cfg, dp)
+        chunk = tsteps.make_mixed_scan_train_step(model, train_cfg, dp)
+        mets = []
+        for (x, y), kind in zip(batches, kinds):
+            state, m = (sup if kind else unsup)(
+                state, torch.from_numpy(_rows(mesh, x)),
+                torch.from_numpy(_rows(mesh, y)), 1.0)
+            mets.append({k: v.clone() for k, v in m.items()})
+        rest = batches[len(kinds):len(kinds) + len(chunk_mask)]
+        if rest:
+            xs = np.stack([_rows(mesh, x) for x, _ in rest])
+            ys = np.stack([_rows(mesh, y) for _, y in rest])
+            state, m = chunk(state, torch.from_numpy(xs),
+                             torch.from_numpy(ys), chunk_mask, 1.0)
+            mets.append(m)
+    finally:
+        tsteps.draw_noise = draw
+    return {'metrics': mets, 'state': _state(state)}
+
+
+def shardmap(mesh, params: dict, batch) -> dict:
+    """One sup step of ``make_shardmap_train_steps`` from `params`."""
+    from gltvae_torch.models.ccvae import CCVAE
+    from gltvae_torch.parallel.dp import shard_state
+    from gltvae_torch.parallel.shardmap import make_shardmap_train_steps
+    from gltvae_torch.train.state import create_train_state
+    model_cfg, train_cfg = configs()
+    model = CCVAE(model_cfg, mu_init=params['mu'].numpy())
+    model.load_state_dict(params)
+    state = shard_state(create_train_state(model, train_cfg), mesh)
+    sup, _ = make_shardmap_train_steps(model, train_cfg, mesh)
+    x, y = batch
+    state, m = sup(state, torch.from_numpy(_rows(mesh, x)),
+                   torch.from_numpy(_rows(mesh, y)), 1.0)
+    return {'metrics': m, 'state': _state(state)}
+
+
+def loaders(mesh, local: bool = False, pad: int = 0, sup: float = 0.5,
+            n_train: int = 64):
+    """The synthetic splits' loaders at the global batch B; host-sharded
+    (each rank fetches its rows) with `local`."""
+    from gltvae_torch.data.pipeline import BatchLoader
+    from gltvae_torch.data.synthetic import synthetic_splits
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    # 35-row eval splits: 3 wrap-around batches, and 18 resident rows a
+    # rank of 2, one of them padding
+    splits = synthetic_splits(n_train=n_train, n_valid=35, n_test=35,
+                              sup_frac=sup, image_size=16, y_dim=4,
+                              train_pad=pad)
+    shard = (mesh.rank, mesh.world) if local and mesh is not None else None
+    lds = {k: BatchLoader(v, B, seed=0, shard=shard)
+           for k, v in splits.items()}
+    return lds, cooccurrence_gating_matrix(splits['sup'].labels)
+
+
+def trainer(mesh, local: bool = False, pad: int = 0, epochs: int = 2,
+            run_dir: Optional[str] = None, resume: bool = False,
+            **trainer_kw) -> dict:
+    """Trainer.train for `epochs`, then test accuracy and test ELBO; every
+    crop the augment leg makes is kept."""
+    from gltvae_torch.train.loop import Trainer
+    model_cfg, train_cfg = configs(perc_supervision=0.5, n_epochs=epochs,
+                                   augment_pad=pad)
+    lds, mu = loaders(mesh, local, pad)
+    kw = dict(device='cpu', mesh=mesh, local_batches=local)
+    if run_dir is not None:
+        kw.update(checkpoint_dir=os.path.join(run_dir, 'checkpoints'),
+                  metrics_path=os.path.join(run_dir, 'metrics.csv'))
+    tr = Trainer(model_cfg, train_cfg, mu_init=mu, **kw, **trainer_kw)
+    crops = []
+    augment = tr._augment
+    tr._augment = lambda u8: crops.append(augment(u8)) or crops[-1]
+    res = tr.train(lds, param_dir=run_dir, log_every=1, resume=resume)
+    out = {'state': _state(tr.state), 'history': res['history'],
+           'rows': [{k: v for k, v in r.items() if k != 'time'}
+                    for r in tr.metrics.rows],
+           'test_acc': tr.test(lds['test']),
+           'test_elbo': tr.test_elbo(lds['test']),
+           'crops': crops, 'gating_temp': tr.gating_temp}
+    out['resident'] = {k: tuple(tr._resident_data[id(ld)][1].shape)
+                       for k, ld in lds.items()
+                       if id(ld) in tr._resident_data}
+    if mesh is not None:
+        from gltvae_torch.parallel.dp import replicas_agree
+        out['replicas_agree'] = replicas_agree(tr.state, mesh)
+    return out
+
+
+#: the Trainer runs of ``trainer_set``: the resident default, both splits
+#: shipped (global batches, then host-sharded loaders), and the augmented
+#: path in chunks of 2 (shipped)
+TRAINER_RUNS = {
+    'resident': {},
+    'shipped': dict(resident_train='off', resident_eval='off'),
+    'shipped_local': dict(resident_train='off', resident_eval='off',
+                          local=True),
+    'augmented': dict(pad=2, steps_per_dispatch=2),
+}
+
+
+def trainer_set(mesh, runs=tuple(TRAINER_RUNS)) -> dict:
+    """``trainer`` for each of `runs` (names of TRAINER_RUNS), and
+    ``evaluate``."""
+    out = {name: trainer(mesh, **TRAINER_RUNS[name]) for name in runs}
+    out['evaluate'] = evaluate(mesh)
+    return out
+
+
+def evaluate(mesh) -> dict:
+    """A fresh Trainer's validation accuracy and ELBO, resident and
+    shipped, and its test accuracy, each from the same initial state."""
+    from gltvae_torch.train.loop import Trainer
+    model_cfg, train_cfg = configs(perc_supervision=0.5)
+    out = {}
+    for name, kw in (('resident', {}), ('shipped', dict(resident_eval='off'))):
+        lds, mu = loaders(mesh)
+        tr = Trainer(model_cfg, train_cfg, mu_init=mu, device='cpu',
+                     mesh=mesh, **kw)
+        out[name] = (tr.evaluate(lds['valid']), tr.test_elbo(lds['valid']),
+                     tr.test(lds['test']))
+    return out
+
+
+def debug_nans(mesh) -> dict:
+    """A sup step under ``debug_nans`` with a NaN encoder weight on rank 0
+    only (rank 1's rows are clean): what each rank raises."""
+    from gltvae_torch.train.loop import Trainer
+    model_cfg, train_cfg = configs()
+    tr = Trainer(model_cfg, train_cfg, mu_init=np.full((4, 4), 0.5,
+                                                       np.float32),
+                 device='cpu', mesh=mesh, debug_nans=True)
+    if mesh.rank == 0:
+        with torch.no_grad():
+            tr.model.encoder.conv1.weight[0, 0, 0, 0] = float('nan')
+    r = np.random.RandomState(mesh.rank)
+    x = torch.from_numpy(r.randint(0, 256, (B // mesh.world, 16, 16, 3))
+                         .astype(np.uint8))
+    y = torch.from_numpy((r.rand(B // mesh.world, 4) > 0.5)
+                         .astype(np.float32))
+    try:
+        tr._sup_step(tr.state, x, y, 1.0)
+    except FloatingPointError as e:     # the outcome under test
+        return {'raised': str(e)}
+    return {'raised': None}
+
+
+def cli(mesh, where, argv: list) -> dict:
+    """``gltvae_torch.cli.main`` with this rank's --dist-* flags (the
+    coordinator a file:// store): the CLI joins the group itself."""
+    from gltvae_torch import cli as tcli
+    rank, world, store = where
+    return {'result': tcli.main(argv + [
+        '--dist-coordinator', f'file://{store}', '--dist-num-processes',
+        str(world), '--dist-process-id', str(rank)])}
+
+
+def resume(mesh, run_dir: str) -> dict:
+    """2 epochs, then a new Trainer resumed into a 4-epoch schedule (the
+    JAX package's tests/test_trainer_mesh_e2e.py resume case)."""
+    first = trainer(mesh, run_dir=run_dir, epochs=2)
+    second = trainer(mesh, run_dir=run_dir, epochs=4, resume=True)
+    return {'first': first, 'second': second}
+
+
+def infer(mesh, argv: list) -> dict:
+    """``gltvae_torch.infer.main(argv)`` on every rank (its --mesh joins
+    the initialized group)."""
+    from gltvae_torch import infer as tinfer
+    return {'output': tinfer.main(argv)}
+
+
+SCENARIOS = {'steps': steps, 'shardmap': shardmap, 'trainer': trainer,
+             'trainer_set': trainer_set, 'debug_nans': debug_nans,
+             'resume': resume, 'infer': infer, 'cli': cli}
