@@ -20,8 +20,13 @@ Package layout
 - ``gltvae_torch.parallel`` data parallelism over torch.distributed: the
                             mesh of ranks, the DP step, per-rank noise
 - ``gltvae_torch.cli``      ``python -m gltvae_torch.cli`` (train.py counterpart);
-                            ``infer``, ``render``, ``export_h5`` and
-                            ``export_serving`` are the tools/ counterparts
+                            ``infer``, ``render``, ``export_h5``,
+                            ``export_serving``, ``gen_gating_matrix``,
+                            ``analyze_gating``, ``metrics_summary``,
+                            ``eval_reference_checkpoints``,
+                            ``repro_reference``, ``parity_corpus``,
+                            ``seed_panel``, ``bench_data`` and
+                            ``profile_step`` are the tools/ counterparts
 - ``gltvae_torch.bench``    ``python -m gltvae_torch.bench`` (bench.py's twin)
 
 Public functions keep the JAX package's NHWC image layout. Entry points run

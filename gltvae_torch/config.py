@@ -243,3 +243,28 @@ def celeba128(gate_type: str = 'learnable', sup: float = 1.0,
     )
     train = TrainConfig(perc_supervision=sup, **overrides)
     return model, train
+
+
+def dp_sweep(**overrides) -> list:
+    """The data-parallel sweep (counterpart of gltvae/config.py:305
+    ``v5p8_sweep``, BASELINE.json config 5): every gate scheme x sup
+    fractions {0.2, 0.5, 1.0} at global batch 4096 in bf16. Returns the
+    same (name, ModelConfig, TrainConfig) triples, names included. Run an
+    entry with ``torchrun --nproc-per-node=N -m gltvae_torch.cli --mesh
+    -bs 4096 --compute-dtype bfloat16 --gate-type ... --sup ...``: each of
+    the N ranks takes 4096/N rows of every batch."""
+    gate_modes = [('learnable', 'inferred'), ('fixed', 'inferred'),
+                  ('fixed', 'one-one')]
+    out = []
+    for gate_type, gate_subtype in gate_modes:
+        for sup in (0.2, 0.5, 1.0):
+            model = ModelConfig(gate_type=gate_type,
+                                gate_subtype=gate_subtype,
+                                compute_dtype='bfloat16')
+            train = TrainConfig(perc_supervision=sup, batch_size=4096,
+                                **overrides)
+            name = (f'v5p8_{gate_type}'
+                    + ('' if gate_type == 'learnable' else f'_{gate_subtype}')
+                    + f'_sup{sup}')
+            out.append((name, model, train))
+    return out

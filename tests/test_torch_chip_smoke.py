@@ -229,3 +229,70 @@ def test_dp_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert '[phase 30]' in printed and printed.count('[phase 31]') == 4
     assert 'slice_mesh1:' in printed and 'slice_dp:' in printed
+
+
+def test_experiment_phases_rehearse_on_the_cpu(monkeypatch, tmp_path,
+                                               capsys):
+    """Phases 32-34 on the CPU from the tiny corpus and phase 18's tiny
+    run: the μ files bit-equal to ops/gating.py's, the 9 matrix cells
+    launching where the card would (steps + 4 eval batches each: 111 at
+    64/16/16 and batch 8, as at 2,048/512/512 and 256), and the seed
+    panel's two CLI subprocesses."""
+    celeba = _rehearse(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'PANEL_N', 35)
+    monkeypatch.setattr(chip_smoke, 'PANEL_BS', 8)
+    out = chip_smoke.experiment_phases(torch.device('cpu'), 'cpu', celeba)
+    assert out == {'matrix': 111, 'seed_panel': None}
+    printed = capsys.readouterr().out
+    for n in (32, 33, 34):
+        assert f'[phase {n}]' in printed
+    assert 'matrix: {' in printed
+
+
+def test_measure_phases_rehearse_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phases 35-36 on the CPU at batch 8: bench_data's rows and its
+    ship+step launches (warm-up + 2 steps, twice), each profile mode's
+    launches (12 dispatches of 1 step, 2 steps or 2 eval batches) and the
+    summary with all four modes."""
+    import functools
+    from gltvae_torch import bench_data
+    _on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'BENCH_DATA_N', 32)
+    monkeypatch.setattr(chip_smoke, 'SHIP_ITERS', 2)
+    monkeypatch.setattr(chip_smoke, 'PROFILE_EVAL_IMAGES', 16)
+    monkeypatch.setattr(chip_smoke, 'PROFILE_SCAN', 2)
+    monkeypatch.setattr(bench_data, 'bench_ship_and_step', functools.partial(
+        bench_data.bench_ship_and_step, batch_size=8, iters=2))
+    out = chip_smoke.measure_phases(torch.device('cpu'), 'cpu')
+    assert out == {'bench_data': 6,
+                   'profile': {'train-step': 12, 'train-scan': 24,
+                               'eval-resident': 24, 'eval-chunked': 24}}
+    printed = capsys.readouterr().out
+    for n in (35, 36):
+        assert f'[phase {n}]' in printed
+    assert 'bench_data: {' in printed and 'profile eval-chunked:' in printed
+
+
+@pytest.mark.parametrize('world', [None, 2], ids=['one_device', '2_gloo'])
+def test_sweep_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys,
+                                          world):
+    """Phase 37 on the CPU at global batch 8 (the sweep's bf16 model at its
+    widths): the one process's 6 launches at (8, 64, 64, 3); with one
+    device it names the NCCL leg as not run and runs nothing in its place;
+    with 2 gloo ranks (the rank code the card's NCCL ranks run) a 13-row
+    eval split (7 resident rows a rank, one of them padding), resident
+    equal to shipped, and both dtypes' steps held to the one process."""
+    _on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'SWEEP_BATCH', 8)
+    monkeypatch.setattr(chip_smoke, 'SWEEP_EVAL_ROWS', 13)
+    out = chip_smoke.sweep_phase(torch.device('cpu'), 'cpu', world=world)
+    assert out['one_process'] == 6
+    printed = capsys.readouterr().out
+    assert 'slice_sweep:' in printed
+    if world is None:
+        assert out['ranks'] is None
+        assert 'NCCL across cards not run in this call' in printed
+    else:
+        assert out['ranks'] == {'world': 2, 'backend': 'gloo',
+                                'launches_per_rank': 8}
+        assert printed.count('[phase 37]') == 4

@@ -1,4 +1,5 @@
-"""gltvae_torch stands alone: no JAX, nothing of gltvae, no grain,
+"""gltvae_torch stands alone: no JAX, nothing of gltvae or of the JAX
+package's tools and scripts (tools/, train.py, bench.py), no grain,
 tensorflow or tensorboard (each imports JAX or tensorflow), and no silent
 fall-back to the CPU."""
 
@@ -14,7 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'gltvae_torch'
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'optax', 'orbax', 'gltvae', 'grain',
-             'tensorflow', 'tensorboard'}
+             'tensorflow', 'tensorboard', 'tools', 'train', 'bench'}
 
 MODULES = sorted(
     '.'.join(p.relative_to(ROOT).with_suffix('').parts).replace(
@@ -85,10 +86,15 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
     'gltvae_torch.export_serving', 'gltvae_torch.ops.preprocess',
     'gltvae_torch.data.grain_loader', 'gltvae_torch.utils.tb_events',
     'gltvae_torch.train.metrics', 'gltvae_torch.utils.debug_nans',
-    'gltvae_torch.bench'])
+    'gltvae_torch.bench', 'gltvae_torch.gen_gating_matrix',
+    'gltvae_torch.analyze_gating', 'gltvae_torch.metrics_summary',
+    'gltvae_torch.eval_reference_checkpoints',
+    'gltvae_torch.repro_reference', 'gltvae_torch.parity_corpus',
+    'gltvae_torch.seed_panel', 'gltvae_torch.bench_data',
+    'gltvae_torch.profile_step', 'gltvae_torch.config'])
 def test_data_layer_and_infer_import_alone(module):
     """Each module of the data layer, batch inference, interchange,
-    serving, metrics and the bench, imported alone in a fresh interpreter
+    serving, metrics, the bench, the tools and the config, imported alone in a fresh interpreter
     with the forbidden packages blocked (importing them raises), loads none
     of them; nothing is built at import (the native pool builds on first
     use)."""

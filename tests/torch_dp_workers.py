@@ -272,6 +272,39 @@ def infer(mesh, argv: list) -> dict:
     return {'output': tinfer.main(argv)}
 
 
-SCENARIOS = {'steps': steps, 'shardmap': shardmap, 'trainer': trainer,
-             'trainer_set': trainer_set, 'debug_nans': debug_nans,
-             'resume': resume, 'infer': infer, 'cli': cli}
+def sweep(mesh, batch: int, batches: list) -> list:
+    """``config.dp_sweep()[0]`` (the full-width model) at global batch
+    `batch` in f32: one sup step and one unsup step, each from the initial
+    state, on the global (x, y) `batches`. Returns each step's metrics and
+    state, and the initial params."""
+    import dataclasses
+    from gltvae_torch.config import dp_sweep
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.train import steps as tsteps
+    from gltvae_torch.train.state import create_train_state, init_model
+    _, model_cfg, train_cfg = dp_sweep()[0]
+    model_cfg = dataclasses.replace(model_cfg, compute_dtype='float32')
+    train_cfg = dataclasses.replace(train_cfg, batch_size=batch)
+    mu = cooccurrence_gating_matrix(batches[0][1]).astype(np.float32)
+    out = []
+    for (x, y), sup in zip(batches, (True, False)):
+        model = init_model(model_cfg, train_cfg, mu)
+        state = create_train_state(model, train_cfg)
+        dp = None
+        if mesh is not None:
+            shard_state(state, mesh)
+            dp = DataParallel(mesh)
+        p0 = {k: v.clone() for k, v in model.state_dict().items()}
+        step = tsteps.make_train_steps(model, train_cfg, dp)[0 if sup else 1]
+        state, m = step(state, torch.from_numpy(_rows(mesh, x)),
+                        torch.from_numpy(_rows(mesh, y)), 1.0)
+        out.append({'metrics': {k: float(v) for k, v in m.items()},
+                    'state': _state(state), 'p0': p0})
+    return out
+
+
+SCENARIOS = {'steps': steps, 'sweep': sweep, 'shardmap': shardmap,
+             'trainer': trainer, 'trainer_set': trainer_set,
+             'debug_nans': debug_nans, 'resume': resume, 'infer': infer,
+             'cli': cli}
