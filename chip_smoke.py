@@ -146,11 +146,28 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     eval resident (the row exchange) and shipped, equal on every rank and
     in both legs, within 1e-3 of the one process, through
     all_gather_into_tensor on NCCL. On one card it says that NCCL across
-    cards did not run and runs nothing in its place.
+    cards did not run and runs nothing in its place;
+38. ``parity_head2head`` on the 2,100-image parity corpus (seed 0, written
+    under build/chip_smoke_h2h/), learnable/inferred sup=0.2 for 12 epochs
+    at bs 64, its reference leg the recorded one
+    (docs/artifacts/h2h_results.json, reused through --skip-reference),
+    its port leg ``cli.main`` in this process on the card: the harness's
+    files and tags, result.json's device, 12 val accuracies and a finite
+    test accuracy, dequant launches (steps + eval batches), every one at
+    (64, 64, 64, 3) (the loaders wrap around, so the last eval batch is
+    whole too), dequant bit-equal to plain there and timed beside its
+    bound, and the learning floor (test accuracy at
+    least the test split's majority-class accuracy + 0.03); the deltas
+    against the recorded reference and gltvae legs, the verdict at tol
+    0.06, the wall and the img/s are printed, not held.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2 and 37
-alone (the check to run on four cards). Run artifacts go to
+alone (the check to run on four cards). ``--h2h-only`` runs phases 1-2,
+then the recorded head-to-head matrix through the harness in one workdir
+(9 cells at 12 epochs but fixed/one-one sup=1.0 at 30, and that cell at
+12 epochs with training seeds 1-4), one line a cell, and ``--h2h-out DIR``
+copies its results, report and walls to DIR. Run artifacts go to
 build/chip_smoke*/.
 """
 
@@ -2207,14 +2224,333 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
     return out
 
 
+#: phase 38: the recorded head-to-head's corpus size, epochs and batch
+#: (docs/HEAD2HEAD.md), its parity tolerance, and the learning floor: the
+#: port's test accuracy must beat the test split's majority-class accuracy
+#: by H2H_FLOOR (the recorded legs sit at 0.56-0.74, chance about 0.5)
+H2H_N = 2100
+H2H_EPOCHS = 12
+H2H_BS = 64
+H2H_TOL = 0.06
+H2H_FLOOR = 0.03
+#: the recorded legs: every cell's reference and gltvae legs, and for
+#: training seed 4 of fixed/one-one sup=1.0 the reference's leg and
+#: gltvae's (the posterior-locs panel's relu run at seed 4)
+H2H_RECORD = os.path.join(ROOT, 'docs', 'artifacts', 'h2h_results.json')
+REF_SEED_PANEL = os.path.join(ROOT, 'docs', 'artifacts',
+                              'ref_seed_panel.json')
+GLTVAE_SEED_PANEL = os.path.join(ROOT, 'docs', 'artifacts',
+                                 'posterior_locs_seed_panel.json')
+#: --h2h-only: the recorded matrix as harness invocations into one
+#: workdir (the harness merges them): 8 cells at 12 epochs, fixed/one-one
+#: sup=1.0 at 30 (its recorded leg's length), and that cell at 12 epochs
+#: with training seeds 1-4
+H2H_MATRIX = (
+    [['--modes', 'fixed/inferred', 'learnable/inferred',
+      '--sups', '1.0', '0.5', '0.2', '--epochs', '12'],
+     ['--modes', 'fixed/one-one', '--sups', '0.5', '0.2', '--epochs', '12'],
+     ['--modes', 'fixed/one-one', '--sups', '1.0', '--epochs', '30']]
+    + [['--modes', 'fixed/one-one', '--sups', '1.0', '--epochs', '12',
+        '--train-seed', str(s)] for s in (1, 2, 3, 4)])
+
+
+def parse_h2h_tag(tag):
+    """'fixed/one-one/sup=1.0/tseed=2' -> ('fixed', 'one-one', 1.0, 2);
+    the seed is None without a tseed part."""
+    parts = tag.split('/')
+    seed = int(parts[3].split('=')[1]) if len(parts) > 3 else None
+    return parts[0], parts[1], float(parts[2].split('=')[1]), seed
+
+
+def recorded_legs(tag):
+    """(reference leg, gltvae leg) of a head-to-head cell as recorded in
+    the repo."""
+    with open(H2H_RECORD) as f:
+        record = json.load(f)
+    if tag in record:
+        return record[tag]['reference'], record[tag]['gltvae']
+    check(parse_h2h_tag(tag) == ('fixed', 'one-one', 1.0, 4),
+          f'no recorded leg for {tag}')
+    with open(REF_SEED_PANEL) as f:
+        ref = json.load(f)['seed4']
+    with open(GLTVAE_SEED_PANEL) as f:
+        glt = json.load(f)['locs=relu/seed=4']
+    return ref, glt
+
+
+def write_reference_leg(workdir, tag, leg):
+    """Write a recorded reference leg where the harness's
+    ``--skip-reference`` reuses it: ``run_reference``'s
+    <workdir>/ref_{gate_type}_{gate_subtype}_{sup}[_s{seed}].json."""
+    gate_type, gate_subtype, sup, seed = parse_h2h_tag(tag)
+    name = f'ref_{gate_type}_{gate_subtype}_{sup}' + (
+        '' if seed is None else f'_s{seed}')
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, f'{name}.json')
+    with open(path, 'w') as f:
+        json.dump(leg, f, indent=2)
+    return path
+
+
+def majority_accuracy(data_dir, n):
+    """The test split's majority-class accuracy: each easy attribute
+    predicted as its more frequent value over the test rows (the CLI's
+    --n-* splits: the last n // 7 of the CSV's first n rows), averaged
+    over the attributes and rows."""
+    import numpy as np
+    from gltvae_torch.data.celeba import load_attr_csv
+    from gltvae_torch.parity_head2head import splits
+    _, labels = load_attr_csv(os.path.join(data_dir, 'list_attr_celeba.csv'))
+    n_tr, n_va, n_te = splits(n)
+    p = labels[n_tr + n_va:n_tr + n_va + n_te].mean(0)
+    return float(np.maximum(p, 1 - p).mean())
+
+
+def h2h_steps(n, sup, bs, epochs):
+    """(train steps, eval batches) of one port leg: the reference loader's
+    ceil(rows / bs) batches an epoch for each of the sup and unsup parts of
+    the train split (the sup part its first int(rows * sup)), and for the
+    valid split each epoch and the test split once."""
+    from gltvae_torch.parity_head2head import splits
+    n_tr, n_va, n_te = splits(n)
+    k = n_tr if sup == 1.0 else int(n_tr * sup)
+    per_epoch = -(-k // bs) + -(-(n_tr - k) // bs)
+    return epochs * per_epoch, epochs * -(-n_va // bs) + -(-n_te // bs)
+
+
+def run_h2h(argv, dev, cells):
+    """``parity_head2head.main(argv)`` with its port leg run in this process
+    (``cli.main`` on the command's arguments, so the wrappers' launch
+    counts see it; any other command fails the phase). Each port leg
+    appends to `cells`: its wall, dequant and augment launches, and the
+    shapes dequant saw. Returns (results, printed text)."""
+    import gltvae_torch.train.steps as tsteps
+    from gltvae_torch import cli, parity_head2head
+    from gltvae_torch.ops import preprocess
+    seen = []
+
+    def port_leg(cmd, **kw):
+        check(cmd[1:3] == ['-m', 'gltvae_torch.cli'],
+              f'the harness ran {cmd[:3]}: only the port leg runs here (the '
+              f'reference legs are recorded)')
+        sync(dev)
+        preprocess.launches = preprocess.augment_launches = 0
+        seen.clear()
+        t0 = time.perf_counter()
+        cli.main(cmd[3:])
+        sync(dev)
+        cells.append(dict(s=time.perf_counter() - t0,
+                          launches=(preprocess.launches,
+                                    preprocess.augment_launches),
+                          shapes=sorted(set(seen))))
+        return subprocess.CompletedProcess(cmd, 0)
+    undo = [patched(subprocess, 'run', lambda f: port_leg),
+            patched(tsteps, 'dequant', lambda f: lambda x, *a: (
+                seen.append(tuple(x.shape)), f(x, *a))[1])]
+    try:
+        return captured(parity_head2head.main, argv)
+    finally:
+        for u in undo:
+            u()
+
+
+def h2h_line(tag, r, cell):
+    """One printed line a head-to-head cell: the port's, the recorded
+    reference's and gltvae's test accuracies, both deltas, the verdict at
+    H2H_TOL, the wall and the port's img/s."""
+    _, glt = recorded_legs(tag)
+    port, ref = r['port']['test_accuracy'], r['reference']['test_accuracy']
+    verdict = {None: 'n/a', True: 'PASS', False: 'FAIL'}[
+        r['compare']['parity']]
+    return (f'h2h {tag}: port {port:.4f}, ref {ref:.4f}, gltvae '
+            f'{glt["test_accuracy"]:.4f}; delta vs ref {port - ref:+.4f}, '
+            f'vs gltvae {port - glt["test_accuracy"]:+.4f}; {verdict} at tol '
+            f'{H2H_TOL}; wall {cell["s"]:.1f} s, '
+            f'{r["port"]["images_per_sec"]:.0f} img/s')
+
+
+def dequant_at(shp, dev, smi):
+    """Dequant bit-equal to its plain version (divide and multiply forms)
+    on the device and the CPU at `shp`; on the card timed beside its
+    bound over inputs cycled past the 50 MB L2. Returns the timing (None
+    off the card)."""
+    import torch
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.time_kernels import (cuda_ms, cycler, dequant_bound_ms,
+                                           memory_rate)
+    gen = torch.Generator(device=dev).manual_seed(38)
+    n = math.prod(shp)
+    ins = [torch.randint(0, 256, shp, dtype=torch.uint8, device=dev,
+                         generator=gen) for _ in range(-(-64 * 2**20 // n))]
+    for mode in ('div', 'mul'):
+        got = preprocess.dequant(ins[0], mode)
+        check(torch.equal(got, preprocess.dequant_reference(ins[0], mode)),
+              f'dequant {mode} {shp}: kernel != plain')
+        check(torch.equal(got.cpu(), preprocess.dequant_reference(
+            ins[0].cpu(), mode)), f'dequant {mode} {shp}: card != CPU')
+    if dev.type != 'cuda':
+        return None
+    nxt = cycler(ins)
+    ms, call_ms = cuda_ms(lambda: preprocess.dequant(nxt()), 100)
+    plain, _ = cuda_ms(lambda: preprocess.dequant_reference(nxt()), 50)
+    lib, _ = cuda_ms(lambda: nxt().float() / 255.0, 50)
+    bound = dequant_bound_ms(n, memory_rate(torch.cuda.get_device_name(dev)))
+    plan = preprocess.dequant_plan(ins[0].data_ptr(), 0, n)
+    print(f'kernels dequant {shp}: kernel_ms {ms:.5f} ({call_ms:.5f}); '
+          f'plain_ms {plain:.5f}; library_ms {lib:.5f}; bound_ms '
+          f'{bound:.5f} ({n * 5} B, {bound / ms:.1%} of it); plan '
+          f'{plan.tiles} tiles + {plan.tail} B tail; card {smi}', flush=True)
+    return {'shape': list(shp), 'ms': ms, 'plain_ms': plain,
+            'library_ms': lib, 'bound_ms': bound}
+
+
+def h2h_phase(dev, smi):
+    """Phase 38: the head-to-head harness's port leg on the device, one
+    recorded cell at full size (learnable/inferred sup=0.2: learnable μ
+    with temperature decay on the sup/unsup interleave), the reference leg
+    reused from the recorded results. Returns the dequant launches and
+    the timings at the path's shape."""
+    work = os.path.join(ROOT, 'build', 'chip_smoke_h2h')
+    shutil.rmtree(work, ignore_errors=True)
+    tag = 'learnable/inferred/sup=0.2'
+    ref, glt = recorded_legs(tag)
+    ref_path = write_reference_leg(work, tag, ref)
+    report = os.path.join(work, 'HEAD2HEAD.md')
+    cells = []
+    results, text = run_h2h([
+        '--workdir', work, '--modes', 'learnable/inferred', '--sups', '0.2',
+        '--epochs', str(H2H_EPOCHS), '--bs', str(H2H_BS), '--n', str(H2H_N),
+        '--skip-reference', '--device', str(dev), '--report', report], dev,
+        cells)
+    data_dir = os.path.join(work, 'ref_root', 'data')
+    check(list(results) == [tag] and len(cells) == 1
+          and results[tag]['reference'] == ref
+          and results[tag]['port']['framework'] == 'gltvae_torch',
+          f'harness results {list(results)}, {len(cells)} port legs')
+    with open(os.path.join(work, 'h2h_results.json')) as f:
+        check(json.load(f) == results, 'h2h_results.json != the returned '
+                                       'results')
+    with open(report) as f:
+        check(f'=== {tag}: port leg ===' in text and 'parity: ' in text
+              and f'| {tag} |' in f.read(),
+              f'harness text or report: {text[-300:]!r}')
+    with open(os.path.join(work, 'port_models', 'params_0.2_learnable',
+                           'result.json')) as f:
+        device = json.load(f)['device']
+    check(device == str(dev), f'the port leg ran on {device}, not {dev}')
+    port, cell = results[tag]['port'], cells[0]
+    check(len(port['val_accuracy']) == H2H_EPOCHS
+          and math.isfinite(port['test_accuracy']),
+          f'{len(port["val_accuracy"])} val accuracies, test '
+          f'{port["test_accuracy"]}')
+    steps, eval_batches = h2h_steps(H2H_N, 0.2, H2H_BS, H2H_EPOCHS)
+    check(cell['launches'] == (steps + eval_batches, 0),
+          f'dequant, augment launches {cell["launches"]} for {steps} steps '
+          f'+ {eval_batches} eval batches')
+    # every batch is whole: the loaders wrap around as the reference's
+    # does, so the last eval batch of a split (44 of 300 rows at bs 64) is
+    # completed from the split's front
+    shape = (H2H_BS, 64, 64, 3)
+    check(cell['shapes'] == [shape],
+          f'dequant saw {cell["shapes"]}, expected only {shape}')
+    floor = majority_accuracy(data_dir, H2H_N) + H2H_FLOOR
+    check(port['test_accuracy'] >= floor,
+          f'learning floor: test accuracy {port["test_accuracy"]:.4f} < '
+          f'the test split\'s majority-class accuracy + {H2H_FLOOR} = '
+          f'{floor:.4f}')
+    timed = dequant_at(shape, dev, smi)
+    phase(38, f'parity_head2head --modes learnable/inferred --sups 0.2 '
+              f'--epochs {H2H_EPOCHS} --bs {H2H_BS} --n {H2H_N} '
+              f'--skip-reference (recorded leg {os.path.basename(ref_path)}) '
+              f'on {device}: {steps} steps + {eval_batches} eval '
+              f'batches, dequant launches {cell["launches"][0]} at '
+              f'{cell["shapes"]} (bit-equal to plain there); val accuracies '
+              f'{len(port["val_accuracy"])}, test '
+              f'{port["test_accuracy"]:.4f} >= floor {floor:.4f} (majority '
+              f'+ {H2H_FLOOR}); report {report}')
+    print(h2h_line(tag, results[tag], cell) + f'; gltvae delta vs ref '
+          f'{glt["test_accuracy"] - ref["test_accuracy"]:+.4f} (recorded); '
+          f'card {smi}', flush=True)
+    return {'launches': cell['launches'][0], 'shape': timed}
+
+
+def h2h_matrix(dev, smi, out_dir=None):
+    """--h2h-only: the recorded matrix (H2H_MATRIX) through the harness's
+    port leg into one workdir, each reference leg reused from the recorded
+    results: one line a cell, the harness's summary and report. Each port
+    leg is held to the device, its epochs of val accuracies, a finite test
+    accuracy and its dequant launches; the verdicts are printed, not
+    held. With `out_dir`, the results, the report and each cell's wall
+    and launches are copied there after each invocation. Returns the
+    results."""
+    from gltvae_torch import parity_head2head as h2h
+    work = os.path.join(ROOT, 'build', 'chip_smoke_h2h_matrix')
+    shutil.rmtree(work, ignore_errors=True)
+    report = os.path.join(work, 'HEAD2HEAD_torch.md')
+    walls, results, text = {}, {}, ''
+    for extra in H2H_MATRIX:
+        argv = ['--workdir', work, '--bs', str(H2H_BS), '--n', str(H2H_N),
+                '--skip-reference', '--device', str(dev), '--report',
+                report] + extra
+        args = h2h.parse_args(argv)
+        want = {tuple(m.split('/')) for m in args.modes}
+        tags = [f'{g}/{s}/sup={sup}' + ('' if args.train_seed is None else
+                                       f'/tseed={args.train_seed}')
+                for g, s in h2h.MODES if (g, s) in want for sup in args.sups]
+        for tag in tags:
+            write_reference_leg(work, tag, recorded_legs(tag)[0])
+        cells = []
+        results, text = run_h2h(argv, dev, cells)
+        check(len(cells) == len(tags), f'{len(cells)} port legs for {tags}')
+        run_dir = os.path.join(work, 'port_models' + (
+            '' if args.train_seed is None else f'_s{args.train_seed}'))
+        for tag, cell in zip(tags, cells):
+            port = results[tag]['port']
+            g, s, sup, _ = parse_h2h_tag(tag)
+            steps, eval_batches = h2h_steps(H2H_N, sup, H2H_BS, args.epochs)
+            run_name = (f'params_{sup}_{g}' if g == 'learnable'
+                        else f'params_{sup}_{g}_{s}')
+            with open(os.path.join(run_dir, run_name, 'result.json')) as f:
+                device = json.load(f)['device']
+            check(device == str(dev)
+                  and len(port['val_accuracy']) == args.epochs
+                  and math.isfinite(port['test_accuracy'])
+                  and cell['launches'] == (steps + eval_batches, 0),
+                  f'{tag}: on {device}, {len(port["val_accuracy"])} val '
+                  f'accuracies, test {port["test_accuracy"]}, launches '
+                  f'{cell["launches"]} for {steps} steps + {eval_batches} '
+                  f'eval batches')
+            walls[tag] = dict(seconds=cell['s'], steps=steps,
+                              dequant_launches=cell['launches'][0],
+                              images_per_sec=port['images_per_sec'])
+            print(h2h_line(tag, results[tag], cell) + f'; card {smi}',
+                  flush=True)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            for f in ('h2h_results.json', os.path.basename(report)):
+                shutil.copy(os.path.join(work, f), out_dir)
+            with open(os.path.join(out_dir, 'h2h_walls.json'), 'w') as f:
+                json.dump(dict(card=smi, cells=walls), f, indent=2)
+    print('h2h ' + text.strip().splitlines()[-1] + f'; report {report}; '
+          f'card {smi}', flush=True)
+    return results
+
+
 def main(argv=None):
     import argparse
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-37; see the module text).')
+                                'GPU (phases 1-38; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
                    help='phases 1-2 and 37 only: the sweep in one process '
                         'and, with 2 or more cards, on min(cards, 4) NCCL '
                         'ranks (the four-card check)')
+    p.add_argument('--h2h-only', action='store_true',
+                   help='phases 1-2, then the recorded head-to-head matrix '
+                        'through the harness\'s port leg (13 runs of 12 '
+                        'or 30 epochs on the 2,100-image parity corpus)')
+    p.add_argument('--h2h-out', default=None,
+                   help='with --h2h-only: a folder to copy the results, the '
+                        'report and the walls into')
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2263,9 +2599,11 @@ def main(argv=None):
                                        'spill')):
                 print(f'  ptxas {name}: {line.strip()}')
 
-    if args.sweep_only:
-        sweep = sweep_phase(dev, smi)
-        print(json.dumps({'sweep': sweep}), flush=True)
+    if args.sweep_only or args.h2h_only:
+        if args.sweep_only:
+            print(json.dumps({'sweep': sweep_phase(dev, smi)}), flush=True)
+        if args.h2h_only:
+            h2h_matrix(dev, smi, args.h2h_out)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                                  'kind': card_name,
                                                  'count': count}}),
@@ -2752,6 +3090,9 @@ def main(argv=None):
     # ------------------------------------------------------------- 37
     sweep = sweep_phase(dev, smi)
 
+    # ------------------------------------------------------------- 38
+    h2h = h2h_phase(dev, smi)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -2803,6 +3144,11 @@ def main(argv=None):
             'launches_per_rank'),
         'sweep_ranks': sweep['ranks'],
         'shape_4096': sweep.get('dequant_4096'),
+        # phase 38: the head-to-head harness's port leg (12 epochs at bs
+        # 64 on the 2,100-image parity corpus) and dequant at its one
+        # shape, (64, 64, 64, 3)
+        'launches_h2h': h2h['launches'],
+        'shape_h2h': h2h['shape'],
     }, {
         'name': 'augment',
         'route': 'cuda',

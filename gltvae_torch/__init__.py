@@ -25,8 +25,9 @@ Package layout
                             ``analyze_gating``, ``metrics_summary``,
                             ``eval_reference_checkpoints``,
                             ``repro_reference``, ``parity_corpus``,
-                            ``seed_panel``, ``bench_data`` and
-                            ``profile_step`` are the tools/ counterparts
+                            ``seed_panel``, ``parity_head2head``,
+                            ``bench_data`` and ``profile_step`` are the
+                            tools/ counterparts
 - ``gltvae_torch.bench``    ``python -m gltvae_torch.bench`` (bench.py's twin)
 
 Public functions keep the JAX package's NHWC image layout. Entry points run

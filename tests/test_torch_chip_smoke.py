@@ -10,6 +10,9 @@ split) must catch a dropped bias within the tolerances measured on the
 card."""
 
 import dataclasses
+import json
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -296,3 +299,118 @@ def test_sweep_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys,
         assert out['ranks'] == {'world': 2, 'backend': 'gloo',
                                 'launches_per_rank': 8}
         assert printed.count('[phase 37]') == 4
+
+
+#: every recorded head-to-head cell, and the reference's seed-4 leg
+with open(chip_smoke.H2H_RECORD) as _f:
+    H2H_TAGS = sorted([*json.load(_f), 'fixed/one-one/sup=1.0/tseed=4'])
+
+
+@pytest.mark.parametrize('tag', H2H_TAGS)
+def test_reference_leg_helper_writes_what_run_reference_reads(
+        monkeypatch, tmp_path, tag):
+    """Phase 38's helper writes each recorded reference leg under the name
+    the harness's run_reference reads with --skip-reference (the cell's
+    --train-seed included), so no reference command runs and the leg comes
+    back as recorded; the recorded gltvae leg is there too."""
+    from gltvae_torch import parity_head2head as h2h
+    ref, glt = chip_smoke.recorded_legs(tag)
+    path = chip_smoke.write_reference_leg(str(tmp_path), tag, ref)
+    gate_type, gate_subtype, sup, seed = chip_smoke.parse_h2h_tag(tag)
+    assert f'{gate_type}/{gate_subtype}/sup={sup}' + (
+        '' if seed is None else f'/tseed={seed}') == tag
+    monkeypatch.setattr(subprocess, 'run', lambda *a, **k: pytest.fail(
+        f'a reference leg ran: {a}'))
+    args = h2h.parse_args(['--workdir', str(tmp_path), '--skip-reference']
+                          + ([] if seed is None
+                             else ['--train-seed', str(seed)]))
+    assert h2h.run_reference(args, gate_type, gate_subtype, sup,
+                             str(tmp_path / 'ref_root')) == ref
+    assert os.listdir(tmp_path) == [os.path.basename(path)]
+    assert ref['framework'] == 'reference-tf' and ref['batch_size'] == 64
+    assert (ref['gate_type'], ref['gate_subtype'], ref['sup']) == (
+        gate_type, gate_subtype, sup)
+    assert 0.5 < glt['test_accuracy'] < 0.8 and len(glt['val_accuracy']) \
+        == ref['epochs']
+
+
+def test_h2h_matrix_runs_every_recorded_cell_at_its_length():
+    """--h2h-only's invocations cover every recorded cell once, each at
+    its recorded leg's epochs (fixed/one-one sup=1.0 at 30, the rest 12)."""
+    from gltvae_torch import parity_head2head as h2h
+    cells = {}
+    for extra in chip_smoke.H2H_MATRIX:
+        args = h2h.parse_args(['--workdir', 'w'] + extra)
+        for mode in args.modes:
+            for sup in args.sups:
+                tag = f'{mode}/sup={sup}' + (
+                    '' if args.train_seed is None
+                    else f'/tseed={args.train_seed}')
+                assert tag not in cells
+                cells[tag] = args.epochs
+    assert sorted(cells) == H2H_TAGS
+    for tag, epochs in cells.items():
+        assert chip_smoke.recorded_legs(tag)[0]['epochs'] == epochs
+
+
+def test_h2h_only_parses(monkeypatch, capsys):
+    """--h2h-only and --h2h-out parse; without CUDA the script exits 2
+    and prints no result."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert chip_smoke.main(['--h2h-only', '--h2h-out', 'out']) == 2
+    assert capsys.readouterr().out == ''
+    with pytest.raises(SystemExit):
+        chip_smoke.main(['--h2h-only', '--h2h-bogus'])
+
+
+def test_h2h_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phase 38 on the CPU at a 35-image corpus (25/5/5), 1 epoch at batch
+    8: the harness's files, tags and device, the port leg's launches where
+    the card would (4 steps + 2 eval batches, every batch whole at (8, 64,
+    64, 3)). The learning floor is a property of the 12-epoch run on 2,100
+    images, so here it is the only check allowed to fail."""
+    _on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'H2H_N', 35)
+    monkeypatch.setattr(chip_smoke, 'H2H_EPOCHS', 1)
+    monkeypatch.setattr(chip_smoke, 'H2H_BS', 8)
+    failed = []
+    monkeypatch.setattr(chip_smoke, 'check',
+                        lambda ok, msg: ok or failed.append(msg))
+    out = chip_smoke.h2h_phase(torch.device('cpu'), 'cpu')
+    assert out == {'launches': 6, 'shape': None}
+    assert all(m.startswith('learning floor') for m in failed), failed
+    printed = capsys.readouterr().out
+    assert '[phase 38]' in printed and 'dequant launches 6 at [(8, 64, 64, ' \
+        '3)]' in printed and 'h2h learnable/inferred/sup=0.2: port ' in \
+        printed
+
+
+def test_h2h_matrix_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """--h2h-only's matrix on the CPU at a 35-image corpus, 1 epoch a cell
+    (2 for the 30-epoch cell): 13 port legs in one workdir, each held to
+    its device, val accuracies and launches; one line a cell, the merged
+    results and the report copied to the out folder."""
+    _on_the_cpu(monkeypatch, tmp_path)
+    monkeypatch.setattr(chip_smoke, 'H2H_N', 35)
+    monkeypatch.setattr(chip_smoke, 'H2H_BS', 8)
+    monkeypatch.setattr(chip_smoke, 'H2H_MATRIX', [
+        [{'12': '1', '30': '2'}.get(a, a) for a in extra]
+        for extra in chip_smoke.H2H_MATRIX])
+    out_dir = tmp_path / 'out'
+    results = chip_smoke.h2h_matrix(torch.device('cpu'), 'cpu', str(out_dir))
+    assert sorted(results) == H2H_TAGS
+    assert [len(results[t]['port']['val_accuracy']) for t in H2H_TAGS] == [
+        2 if t == 'fixed/one-one/sup=1.0' else 1 for t in H2H_TAGS]
+    printed = capsys.readouterr().out
+    assert sum(line.startswith('h2h ') and ' port ' in line
+               for line in printed.splitlines()) == len(H2H_TAGS)
+    assert 'h2h parity: ' in printed
+    with open(out_dir / 'h2h_results.json') as f:
+        assert json.load(f) == results
+    with open(out_dir / 'h2h_walls.json') as f:
+        walls = json.load(f)['cells']
+    assert sorted(walls) == H2H_TAGS
+    assert walls['fixed/one-one/sup=1.0']['dequant_launches'] == sum(
+        chip_smoke.h2h_steps(35, 1.0, 8, 2))
+    assert (out_dir / 'HEAD2HEAD_torch.md').read_text().count(
+        '| fixed/one-one/sup=1.0/tseed=') == 4

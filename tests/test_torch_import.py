@@ -54,7 +54,7 @@ def test_no_forbidden_import_in_source(path):
     assert not bad, f'{path} imports {bad}'
 
 
-def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
+def test_entry_points_raise_without_cuda_unless_cpu(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip('this checks a machine without a CUDA device')
     from gltvae_torch import resolve_device
@@ -72,6 +72,25 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(['--synthetic', '--synthetic-n', '16', '--no-test',
                   '--sup', '1.0', '--output-dir', str(tmp_path)])
+    # the head-to-head harness's port leg: the CLI on cuda unless --device
+    # cpu (run here in this process in place of its subprocess)
+    from gltvae_torch import parity_head2head
+    from gltvae_torch.parity_corpus import generate_corpus
+    assert parity_head2head.parse_args(['--workdir', 'w']).device == 'cuda'
+    args = parity_head2head.parse_args(['--workdir', str(tmp_path), '--n',
+                                        '35'])
+    generate_corpus(str(tmp_path / 'data'), n=35)
+    legs = []
+
+    def run_cli(cmd, **kw):
+        legs.append(cmd)
+        return cli.main(cmd[3:])
+    monkeypatch.setattr(subprocess, 'run', run_cli)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_head2head.run_port(args, 'fixed', 'one-one', 1.0,
+                                  str(tmp_path / 'data'))
+    assert legs[0][1:3] == ['-m', 'gltvae_torch.cli'] \
+        and legs[0][-2:] == ['--device', 'cuda']
     assert Trainer(cfg, TrainConfig(), device='cpu').device.type == 'cpu'
     assert resolve_device('cpu') == torch.device('cpu')
 
@@ -91,7 +110,8 @@ def test_entry_points_raise_without_cuda_unless_cpu(tmp_path):
     'gltvae_torch.eval_reference_checkpoints',
     'gltvae_torch.repro_reference', 'gltvae_torch.parity_corpus',
     'gltvae_torch.seed_panel', 'gltvae_torch.bench_data',
-    'gltvae_torch.profile_step', 'gltvae_torch.config'])
+    'gltvae_torch.profile_step', 'gltvae_torch.parity_head2head',
+    'gltvae_torch.config'])
 def test_data_layer_and_infer_import_alone(module):
     """Each module of the data layer, batch inference, interchange,
     serving, metrics, the bench, the tools and the config, imported alone in a fresh interpreter
