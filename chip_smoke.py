@@ -159,11 +159,34 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     bound, and the learning floor (test accuracy at
     least the test split's majority-class accuracy + 0.03); the deltas
     against the recorded reference and gltvae legs, the verdict at tol
-    0.06, the wall and the img/s are printed, not held.
+    0.06, the wall and the img/s are printed, not held;
+39. the data-parallel CLI as a user runs it: ``python -m
+    torch.distributed.run --standalone --nproc-per-node=D chip_smoke.py
+    --dp-cli-rank ...`` (each rank ``cli.main`` with ``--mesh``, its state
+    and files recorded), ``config.dp_sweep()[0]``'s command (learnable,
+    sup 0.2, bf16, global batch 4096) on 65,536 synthetic images for 2
+    epochs (34 steps), at D = 1 (a mesh of one over NCCL), against the
+    same command in one process without ``--mesh``: every rank's
+    end-of-training and restored states bit-equal to rank 0's (sha256 of
+    params, Adam m and v), dequant bit-equal to plain at each rank's
+    (4096/D, 64, 64, 3) and 40 launches a rank (34 steps + 6 eval
+    batches), rank 0 alone writing result.json, model_config.json, the
+    checkpoints and the μ files, the final state within a rel L2 bound of
+    the one process's (``dp_cli_bounds``: 34 times phase 37's one-step
+    tolerances) and test accuracy within 0.02; then ``torchrun ... -m
+    gltvae_torch.infer --mesh`` at batch 256 over 448 JPEGs written from
+    the seed, its CSV equal to the one-process ``infer``'s row for row;
+    printed: the trainer meter's img/s, the last epoch's step wall, spawn
+    to first step, and the device ms a step on the slowest card (NCCL's
+    kernels apart) from a separate one-epoch run of the same command whose
+    dispatches 4-11 are profiled; dequant timed at (1024, 64, 64, 3) and
+    (2048, 64, 64, 3). Each process that fails or outlives 600 s fails the
+    phase (its session killed).
 
 The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2 and 37
-alone (the check to run on four cards). ``--h2h-only`` runs phases 1-2,
+{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37 and
+39 alone (the check to run on four cards: phase 39 then also at D = 2
+and min(cards, 4), one rank a card). ``--h2h-only`` runs phases 1-2,
 then the recorded head-to-head matrix through the harness in one workdir
 (9 cells at 12 epochs but fixed/one-one sup=1.0 at 30, and that cell at
 12 epochs with training seeds 1-4), one line a cell, and ``--h2h-out DIR``
@@ -2536,14 +2559,572 @@ def h2h_matrix(dev, smi, out_dir=None):
     return results
 
 
+#: phase 39: the data-parallel CLI through torchrun, ``config.dp_sweep()[0]``'s
+#: command (learnable/inferred, sup 0.2, bf16, global batch 4096) on
+#: DP_CLI_N synthetic train images for DP_CLI_EPOCHS epochs (sup 0.2 of
+#: 65,536: 4 sup and 13 unsup batches, 17 steps an epoch), then ``infer
+#: --mesh`` at batch DP_CLI_INFER_BS over a corpus of DP_CLI_PHOTOS (train,
+#: valid, test) JPEGs from the seed (448: two batches, the second a
+#: wrap-around tail); each process has DP_CLI_TIMEOUT seconds
+DP_CLI_N = 65536
+DP_CLI_EPOCHS = 2
+DP_CLI_PHOTOS = (320, 64, 64)
+DP_CLI_INFER_BS = 256
+DP_CLI_TIMEOUT = 600.0
+#: the D-rank run against the one process: test accuracy
+DP_CLI_ACC_TOL = 0.02
+#: the profiled run (one epoch, apart from the checked run so that its
+#: meter and step walls carry no profiler cost): dispatches 4-11 on each
+#: card, after the first of each kind has planned its cuDNN algorithms
+DP_CLI_PROFILE = (4, 8)
+SCRIPT = os.path.abspath(__file__)
+
+
+def dp_cli_worlds(cards, sweep):
+    """Phase 39's rank counts: a mesh of one (one torchrun rank over NCCL)
+    on a run of the whole script; with ``--sweep-only`` and 2 or more cards
+    also 2 and min(cards, 4) ranks, one a card (NCCL refuses two ranks on
+    one card, so never more ranks than cards)."""
+    if not sweep or cards < 2:
+        return [1]
+    return sorted({1, 2, min(cards, 4)})
+
+
+def dp_cli_argv(out_dir, mesh, device='cuda', n=None, epochs=None,
+                batch=None, dtype=None):
+    """Phase 39's CLI argv: ``config.dp_sweep()[0]``'s gate scheme, sup
+    fraction, compute dtype and global batch on `n` synthetic train images
+    with a learnable signal for `epochs` epochs, with ``--mesh`` or in one
+    process."""
+    from gltvae_torch.config import dp_sweep
+    _, model_cfg, train_cfg = dp_sweep()[0]
+    argv = ['--synthetic', '--synthetic-n', str(n or DP_CLI_N),
+            '--synthetic-signal', '--do-train',
+            '--epochs', str(epochs or DP_CLI_EPOCHS),
+            '--gate-type', model_cfg.gate_type,
+            '--gate-subtype', model_cfg.gate_subtype,
+            '--sup', str(train_cfg.perc_supervision),
+            '-bs', str(batch or train_cfg.batch_size),
+            '--compute-dtype', dtype or model_cfg.compute_dtype,
+            '--output-dir', out_dir, '--device', device]
+    return argv + (['--mesh'] if mesh else [])
+
+
+def dp_cli_steps(argv):
+    """(train steps, eval batches) of a phase-39 run: the CLI's synthetic
+    split sizes and the Trainer's schedule, validation each epoch and one
+    test pass."""
+    from gltvae_torch.cli import parse_args
+    a = parse_args(argv)
+    n_eval = max(64, a.synthetic_n // 8)
+    sup = a.sup[0]
+    n_sup = int(a.synthetic_n * sup)
+    per_epoch = (math.ceil(n_sup / a.batch_size)
+                 + math.ceil((a.synthetic_n - n_sup) / a.batch_size))
+    return (a.epochs * per_epoch,
+            (a.epochs + 1) * math.ceil(n_eval / a.batch_size))
+
+
+def state_digest(state):
+    """A TrainState's step and the sha256 of its params (every entry of the
+    model's state_dict, μ included), Adam m and Adam v, each over its
+    tensors' names, dtypes and bytes in name order: equal digests are equal
+    states bit for bit."""
+    import hashlib
+
+    import torch
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for k in sorted(tensors):
+            t = tensors[k].detach().cpu().contiguous().reshape(-1)
+            h.update(f'{k} {t.dtype} '.encode())
+            h.update(t.view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+    return {'step': int(state.step),
+            'params': digest(state.model.state_dict()),
+            'adam_m': digest(state.adam_m), 'adam_v': digest(state.adam_v)}
+
+
+def written_paths(log):
+    """Log to `log` the path of every file this process writes (``open`` for
+    writing, ``torch.save``, ``np.save``, ``np.savez``, the target of
+    ``os.replace``); returns the undo."""
+    import builtins
+
+    import numpy as np
+    import torch
+
+    def note(i):
+        def wrap(fn):
+            def run(*a, **k):
+                if len(a) > i and isinstance(a[i], (str, os.PathLike)):
+                    log.append(os.path.abspath(a[i]))
+                return fn(*a, **k)
+            return run
+        return wrap
+
+    def opened(fn):
+        def run(file, mode='r', *a, **k):
+            if isinstance(file, (str, os.PathLike)) and any(
+                    c in mode for c in 'wax+'):
+                log.append(os.path.abspath(file))
+            return fn(file, mode, *a, **k)
+        return run
+    undo = [patched(builtins, 'open', opened),
+            patched(torch, 'save', note(1)), patched(np, 'save', note(0)),
+            patched(np, 'savez', note(0)), patched(os, 'replace', note(1))]
+    return lambda: [u() for u in reversed(undo)]
+
+
+def dp_cli_rank(report_dir, argv, profiled=False):
+    """One process of phase 39, under torchrun (a rank) or alone (with no
+    ``--mesh``: the one-process run): dequant bit-equal to plain at this
+    process's rows of a batch; then ``cli.main(argv)`` with dequant's
+    count set to 0 just before it, every dispatch's time (``Throughput.
+    step``), the paths written, the end-of-training state (its digest; rank
+    0 also its tensors, rank0_state.pt) and the restored state's digest;
+    `profiled` on a card, DP_CLI_PROFILE's dispatches under the profiler.
+    Writes ``<report_dir>/rank<r>.json``."""
+    sys.path.insert(0, os.path.dirname(SCRIPT))
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from gltvae_torch import cli
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.profile_step import kernel_table
+    from gltvae_torch.train import loop, metrics
+    rank = int(os.environ.get('RANK', '0'))
+    world = int(os.environ.get('WORLD_SIZE', '1'))
+    args = cli.parse_args(argv)
+    cuda = args.device != 'cpu'
+    dev = (torch.device('cuda', int(os.environ.get('LOCAL_RANK', '0')))
+           if cuda else torch.device('cpu'))
+    if cuda:
+        torch.cuda.set_device(dev)      # before the profiler touches a card
+    else:
+        count_plain_calls()
+    shape = (args.batch_size // world, args.image_size, args.image_size, 3)
+    u8 = torch.randint(0, 256, shape, dtype=torch.uint8,
+                       generator=torch.Generator().manual_seed(39 + rank)
+                       ).to(dev)
+    check(torch.equal(preprocess.dequant(u8),
+                      preprocess.dequant_reference(u8)),
+          f'rank {rank}: dequant != plain at {shape}')
+    del u8
+    first, n_prof = DP_CLI_PROFILE
+    stamps, trainers, final, tables, written = [], [], {}, [], []
+    prof = None
+
+    def on_step(fn):
+        def run(self, n):
+            fn(self, n)
+            stamps.append(time.time())
+            if prof is not None:
+                prof.step()
+        return run
+
+    def on_train(fn):
+        def run(self, *a, **k):
+            trainers.append(self)
+            out = fn(self, *a, **k)
+            final['digest'] = state_digest(self.state)
+            if rank == 0:
+                torch.save(self.state.state_dict(),
+                           os.path.join(report_dir, 'rank0_state.pt'))
+            return out
+        return run
+
+    def on_trace(p):
+        events = [e for e in p.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        nccl = [e for e in events if 'nccl' in e.key.lower()]
+        tables.append(dict(
+            all=kernel_table(events, n_prof, 5),
+            nccl=kernel_table(nccl, n_prof, 2) if nccl else None))
+    undo = [patched(metrics.Throughput, 'step', on_step),
+            patched(loop.Trainer, 'train', on_train)]
+    out_dir = os.path.abspath(args.output_dir)
+    try:
+        if cuda and profiled:
+            prof = profile(activities=[ProfilerActivity.CUDA],
+                           schedule=schedule(wait=first - 1, warmup=1,
+                                             active=n_prof, repeat=1),
+                           on_trace_ready=on_trace)
+            prof.start()
+        undo.append(written_paths(written))
+        preprocess.launches = 0
+        result = cli.main(argv)
+        launches = preprocess.launches
+        undo.pop()()
+        if prof is not None:
+            prof.stop()
+    finally:
+        for u in reversed(undo):
+            u()
+    own = sorted({os.path.relpath(p, out_dir) for p in written
+                  if p.startswith(out_dir + os.sep)})
+    mesh = trainers[-1].mesh
+    report = dict(rank=rank, world=world, device=str(trainers[-1].device),
+                  backend=mesh and mesh.backend,
+                  kernel_shape=list(shape), launches=launches,
+                  final=final['digest'],
+                  restored=state_digest(trainers[-1].state),
+                  written=own, stamps=stamps,
+                  result={str(k): v for k, v in result.items()},
+                  profile=tables[0] if tables else None)
+    with open(os.path.join(report_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def run_bounded(cmd, log_path, timeout_s):
+    """Run `cmd` from the checkout in a session of its own, its output to
+    `log_path`. A non-zero exit fails the phase with the log's tail; after
+    `timeout_s` seconds the session (torchrun and every rank) is killed and
+    the phase fails. Returns the seconds taken."""
+    import signal
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        [os.path.dirname(SCRIPT)] + [p for p in env.get('PYTHONPATH', '')
+                                     .split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    with open(log_path, 'w') as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(SCRIPT), env=env,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        print(tail, flush=True)
+        check(False, f'{" ".join(cmd[:6])} ... '
+                     + ('timed out after %.0f s' % timeout_s if rc is None
+                        else f'exited {rc}'))
+    return time.perf_counter() - t0
+
+
+def torchrun(world, *cmd):
+    """The command that starts `world` local ranks of `cmd` (a script and
+    its arguments, or ``-m module ...``) under torchrun."""
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            f'--nproc-per-node={world}', *cmd]
+
+
+def dp_cli_bounds(ref_state, steps, lr, dtype):
+    """The rel L2 bounds of phase 39's final state against the one
+    process's, each a one-step tolerance of phase 37 times the run's
+    `steps`: the params by phase 37's element rule (rtol 2e-4, atol 1e-6,
+    or lr/4 of the Adam step, whose size is at most about lr) summed over
+    the elements, as an L2 norm, against the one process's params; Adam m
+    and v by phase 37's rel L2 tolerances for `dtype`."""
+    p = torch_cat(ref_state['params'])
+    n = p.numel()
+    norm = float(p.norm())
+    per_step = 2e-4 + (1e-6 + 0.25 * lr) * math.sqrt(n) / norm
+    m, v = ((BF16_TOL['adam_m_l2'], BF16_TOL['adam_v_l2'])
+            if dtype == 'bfloat16' else (1e-3, 1e-3))
+    return {'params': steps * per_step, 'adam_m': steps * m,
+            'adam_v': steps * v}
+
+
+def torch_cat(tensors):
+    """A dict of tensors as one float64 vector, in name order."""
+    import torch
+    return torch.cat([tensors[k].double().reshape(-1)
+                      for k in sorted(tensors)])
+
+
+def rel_l2(got, want):
+    """|got - want| / |want| over the dicts' tensors as one vector."""
+    a, b = torch_cat(got), torch_cat(want)
+    return float((a - b).norm() / b.norm())
+
+
+def dp_cli_phase(dev, smi, worlds, **argv_kw):
+    """Phase 39: the data-parallel CLI through torchrun at each of `worlds`
+    ranks, one a card over NCCL (gloo on the CPU), against the same command
+    without --mesh in one process; then ``infer --mesh`` through torchrun
+    on each run's checkpoint against the one-process ``infer``. Held: every
+    rank's end-of-training and restored states bit-equal to rank 0's,
+    dequant bit-equal to plain at each rank's rows and its launch count,
+    the files (rank 0 alone writes result.json, the checkpoints and the μ
+    files), the final state within ``dp_cli_bounds`` of the one process's
+    and test accuracy within DP_CLI_ACC_TOL, the CSVs equal row for row.
+    Printed: the trainer meter's img/s, the step wall of the last epoch,
+    spawn to first step, and the device ms a step (NCCL's share apart) of
+    a one-epoch run profiled on each card. Returns what it measured a
+    world."""
+    import torch
+    from gltvae_torch import infer as tinfer
+    from gltvae_torch.cli import build_configs, parse_args
+    from gltvae_torch.data.synthetic import write_celeba_corpus
+    device = 'cpu' if dev.type == 'cpu' else 'cuda'
+    root = os.path.join(ROOT, 'build', 'chip_smoke_dp_cli')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    write_celeba_corpus(os.path.join(root, 'photos'), *DP_CLI_PHOTOS)
+    images = os.path.join(root, 'photos', 'img_align_celeba')
+    n_photos = sum(DP_CLI_PHOTOS)
+    args_ref = dp_cli_argv(os.path.join(root, 'one'), False, device,
+                           **argv_kw)
+    steps, eval_batches = dp_cli_steps(args_ref)
+    a = parse_args(args_ref)
+    model_cfg, train_cfg = build_configs(a, a.sup[0])
+    run_name = f'params_{a.sup[0]}_{model_cfg.gate_type}'
+    B = train_cfg.batch_size
+
+    def launch(world, rep, argv, profiled=False):
+        os.makedirs(rep)
+        cmd = [SCRIPT, '--dp-cli-rank', rep,
+               *(['--profiled'] if profiled else []), *argv]
+        t0 = time.time()
+        s = run_bounded(torchrun(world, *cmd) if world else
+                        [sys.executable, *cmd], rep + '.log', DP_CLI_TIMEOUT)
+        reports = []
+        for r in range(world or 1):
+            with open(os.path.join(rep, f'rank{r}.json')) as f:
+                reports.append(json.load(f))
+        return reports, t0, s
+
+    def device_time(world, argv, name):
+        """The device time a step of `argv` for one epoch at `world` ranks
+        (None: one process), profiled on each card; None off the card."""
+        if device != 'cuda':
+            return None
+        one = argv[:argv.index('--epochs') + 1] + ['1'] + argv[
+            argv.index('--epochs') + 2:]
+        one[one.index('--output-dir') + 1] += '_profiled'
+        reports, _, _ = launch(world, os.path.join(root, name), one, True)
+        return [r['profile'] for r in reports]
+
+    ref_rep = os.path.join(root, 'one_report')
+    (ref,), t_ref, _ = launch(None, ref_rep, args_ref)
+    ref_state = torch.load(os.path.join(ref_rep, 'rank0_state.pt'),
+                           weights_only=False)
+    with open(os.path.join(root, 'one', run_name, 'result.json')) as f:
+        ref_result = json.load(f)
+    bounds = dp_cli_bounds(ref_state, steps, train_cfg.lr,
+                           model_cfg.compute_dtype)
+    out = {'steps': steps, 'eval_batches': eval_batches, 'bounds': bounds,
+           'one_process': dp_cli_speed(
+               [ref], t_ref, steps, B, ref_result,
+               device_time(None, args_ref, 'one_profiled')),
+           'worlds': {}}
+    check(ref['launches'] == steps + eval_batches,
+          f'one process: dequant launches {ref["launches"]}, expected '
+          f'{steps} steps + {eval_batches} eval batches')
+    phase(39, f'{" ".join(args_ref)} in one process: {ref["launches"]} '
+              f'dequant launches ({steps} steps + {eval_batches} eval '
+              f'batches), test accuracy {ref_result["test_accuracy"]:.4f}; '
+              f'bounds of a D-rank run\'s final state against it (rel L2, '
+              f'{steps} steps x phase 37\'s one-step tolerance): params '
+              f'{bounds["params"]:.3e}, Adam m {bounds["adam_m"]:.3e}, v '
+              f'{bounds["adam_v"]:.3e}')
+    print(dp_cli_line('one process', out['one_process'], smi), flush=True)
+    for world in worlds:
+        run_dir = os.path.join(root, f'd{world}')
+        argv = dp_cli_argv(run_dir, True, device, **argv_kw)
+        reports, t0, s = launch(world, os.path.join(root, f'd{world}_report'),
+                                argv)
+        with open(os.path.join(run_dir, run_name, 'result.json')) as f:
+            result = json.load(f)
+        r0 = reports[0]
+        b = B // world
+        backend = 'nccl' if device == 'cuda' else 'gloo'
+        for r, got in enumerate(reports):
+            check(got['rank'] == r and got['world'] == world
+                  and got['device'] == (f'cuda:{r}' if device == 'cuda'
+                                        else 'cpu')
+                  and got['backend'] == backend,
+                  f'{world} ranks: rank {r} is {got["rank"]} of '
+                  f'{got["world"]} on {got["device"]} over '
+                  f'{got["backend"]}, expected {backend}')
+            check(got['final'] == r0['final'] and got['restored'] ==
+                  r0['restored'],
+                  f'{world} ranks: rank {r}\'s state differs from rank 0\'s '
+                  f'({got["final"]} vs {r0["final"]})')
+            check(got['kernel_shape'] == [b, 64, 64, 3]
+                  and got['launches'] == steps + eval_batches,
+                  f'{world} ranks: rank {r} {got["launches"]} dequant '
+                  f'launches at {got["kernel_shape"]}, expected '
+                  f'{steps + eval_batches} at {[b, 64, 64, 3]}')
+            check(r == 0 or not got['written'],
+                  f'{world} ranks: rank {r} wrote {got["written"]}')
+            check(got['result'] == r0['result'],
+                  f'{world} ranks: test accuracy {got["result"]} on rank '
+                  f'{r}, {r0["result"]} on rank 0')
+        check(r0['final']['step'] == steps, f'{world} ranks: final step '
+              f'{r0["final"]["step"]}, expected {steps}')
+        files = r0['written']
+        mu = [f for f in files if os.path.basename(f).startswith(
+            'learned_gating_matrix_')]
+        check(f'{run_name}/result.json' in files
+              and f'{run_name}/model_config.json' in files
+              and any(f.startswith(f'{run_name}/checkpoints/') for f in files)
+              and {os.path.basename(f) for f in mu} >= {
+                  f'learned_gating_matrix_{i}.{e}' for i in ('best', 'last')
+                  for e in ('npy', 'csv')},
+              f'{world} ranks: rank 0 wrote {files}')
+        state = torch.load(os.path.join(run_dir + '_report',
+                                        'rank0_state.pt'), weights_only=False)
+        gaps = {k: rel_l2(state[k], ref_state[k])
+                for k in ('params', 'adam_m', 'adam_v')}
+        acc_gap = abs(result['test_accuracy'] - ref_result['test_accuracy'])
+        check(all(gaps[k] <= bounds[k] for k in gaps)
+              and acc_gap <= DP_CLI_ACC_TOL,
+              f'{world} ranks vs one process: rel L2 {gaps} (bounds '
+              f'{bounds}), test accuracy {result["test_accuracy"]} vs '
+              f'{ref_result["test_accuracy"]} (tol {DP_CLI_ACC_TOL})')
+        speed = dp_cli_speed(reports, t0, steps, B, result,
+                             device_time(world, argv, f'd{world}_profiled'))
+        phase(39, f'torchrun {world} rank(s) of the CLI --mesh '
+                  f'({backend}, {b} rows a '
+                  f'rank), {s:.1f} s: every rank\'s final and restored state '
+                  f'bit-equal to rank 0\'s (step {r0["final"]["step"]}); '
+                  f'dequant bit-equal to plain at {tuple(r0["kernel_shape"])} '
+                  f'and {r0["launches"]} launches on each rank; rank 0 alone '
+                  f'wrote {len(files)} files ({len(mu)} mu files); vs one '
+                  f'process: rel L2 params {gaps["params"]:.3e}, m '
+                  f'{gaps["adam_m"]:.3e}, v {gaps["adam_v"]:.3e} (bounds '
+                  f'{bounds["params"]:.3e}, {bounds["adam_m"]:.3e}, '
+                  f'{bounds["adam_v"]:.3e}), test accuracy '
+                  f'{result["test_accuracy"]:.4f} vs '
+                  f'{ref_result["test_accuracy"]:.4f} (tol '
+                  f'{DP_CLI_ACC_TOL})')
+        print(dp_cli_line(f'{world} rank(s)', speed, smi), flush=True)
+
+        # infer --mesh on this run's checkpoint, held row for row to one
+        # process labelling as many rows a call as each card does (the same
+        # arithmetic); against one process at the global batch its gap is
+        # printed: cuDNN rounds a bf16 batch of 128 rows otherwise than one
+        # of 256 (9 of 448 rows a 4th decimal apart at D = 2, four H100s)
+        ckpt = os.path.join(run_dir, run_name)
+        base = ['--checkpoint', ckpt, '--images', images, '--device', device]
+        mesh_csv = os.path.join(root, f'preds_d{world}.csv')
+        s_inf = run_bounded(torchrun(world, '-m', 'gltvae_torch.infer',
+                                     *base, '--batch-size',
+                                     str(DP_CLI_INFER_BS), '--mesh',
+                                     '--output', mesh_csv),
+                            os.path.join(root, f'infer_d{world}.log'),
+                            DP_CLI_TIMEOUT)
+
+        def one_process(bs):
+            path = os.path.join(root, f'preds_d{world}_one_bs{bs}.csv')
+            captured(tinfer.main, base + ['--batch-size', str(bs),
+                                          '--output', path])
+            return csv_rows(path)
+        got, bs = csv_rows(mesh_csv), DP_CLI_INFER_BS // world
+        per_card = one_process(bs)
+        same = csv_gap(got, per_card)
+        check(len(got) == len(per_card) == n_photos + 1 and same['rows'] == 0,
+              f'infer --mesh on {world} rank(s): {len(got) - 1} rows, vs one '
+              f'process at batch {bs} {same}')
+        whole = same if bs == DP_CLI_INFER_BS else csv_gap(
+            got, one_process(DP_CLI_INFER_BS))
+        phase(39, f'torchrun {world} rank(s) of infer --mesh at batch '
+                  f'{DP_CLI_INFER_BS} over {n_photos} JPEGs, {s_inf:.1f} s: '
+                  f'the CSV equals row for row the one process\'s at batch '
+                  f'{bs} (the rows a card labels at once); against one '
+                  f'process at batch {DP_CLI_INFER_BS}: {whole["rows"]} rows '
+                  f'differ, {whole["labels"]} hard labels, max |dp| '
+                  f'{whole["max_p"]:.4f} (printed)')
+        out['worlds'][world] = dict(
+            launches_per_rank=[g['launches'] for g in reports],
+            shape=r0['kernel_shape'], gaps=gaps,
+            test_accuracy=result['test_accuracy'], seconds=s,
+            infer_vs_global_batch=whole, **speed)
+    out['one_process'].update(test_accuracy=ref_result['test_accuracy'],
+                              launches=ref['launches'])
+    # dequant at the ranks' rows of a 4096 batch on 4 and on 2 cards
+    out['shapes'] = [dequant_at((B // w, 64, 64, 3), dev, smi)
+                     for w in (4, 2)]
+    return out
+
+
+def csv_rows(path):
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def csv_gap(a, b):
+    """Two inference CSVs (lines, header first) compared row by row: the
+    rows that differ, the hard labels that differ and the largest gap of a
+    printed probability."""
+    rows = labels = 0
+    max_p = 0.0
+    for x, y in zip(a[1:], b[1:]):
+        x, y = x.split(','), y.split(',')
+        n = (len(x) - 1) // 2
+        rows += x != y
+        labels += sum(u != v for u, v in zip(x[1:1 + n], y[1:1 + n]))
+        max_p = max([max_p] + [abs(float(u) - float(v))
+                               for u, v in zip(x[1 + n:], y[1 + n:])])
+    return {'rows': rows + (a[:1] != b[:1]) + abs(len(a) - len(b)),
+            'labels': labels, 'max_p': max_p}
+
+
+def dp_cli_speed(reports, t0, steps, batch, result, profs=None):
+    """A phase-39 run's speed: the trainer meter's img/s and the epoch
+    walls (result.json), the median dispatch interval of the last epoch
+    after its first two on rank 0 (the step wall) and its img/s, the
+    seconds from the command's start to the last rank's first step, and
+    from `profs` (each card's profile of the profiled run, or None) the
+    device ms a step on the slowest card and NCCL's part of it."""
+    st = reports[0]['stamps']
+    last = st[steps - steps // len(result['history']) + 1:]
+    gaps = [b - a for a, b in zip(last, last[1:])]
+    wall = statistics.median(gaps) if gaps else float('nan')
+    slow = max(profs or [], default=None,
+               key=lambda p: p['all']['device_ms_per_dispatch'])
+    return dict(meter_images_per_sec=result['images_per_sec'],
+                epoch_s=[h['epoch_time'] for h in result['history']],
+                step_wall_ms=wall * 1e3, step_images_per_sec=batch / wall,
+                device_ms_per_step=slow and slow['all'][
+                    'device_ms_per_dispatch'],
+                nccl_ms_per_step=slow and (slow['nccl'] or {}).get(
+                    'device_ms_per_dispatch', 0.0),
+                launches_per_step=slow and slow['all'][
+                    'launches_per_dispatch'],
+                spawn_to_first_step_s=max(r['stamps'][0] for r in reports)
+                - t0)
+
+
+def dp_cli_line(label, sp, smi):
+    """The printed speed line of one phase-39 run."""
+    dev = ('not measured (no card)' if sp['device_ms_per_step'] is None
+           else f'{sp["device_ms_per_step"]:.3f} ms a step on the slowest '
+                f'card ({sp["device_ms_per_step"] / sp["step_wall_ms"]:.1%} '
+                f'of the step wall), NCCL {sp["nccl_ms_per_step"]:.3f} of '
+                f'it, {sp["launches_per_step"]:.0f} launches (a one-epoch '
+                f'run, dispatches {DP_CLI_PROFILE[0]}-'
+                f'{sum(DP_CLI_PROFILE) - 1} profiled)')
+    return (f'slice_dp_cli {label}: trainer meter '
+            f'{sp["meter_images_per_sec"]:.0f} img/s (epochs '
+            f'{", ".join(f"{e:.2f}" for e in sp["epoch_s"])} s); step wall '
+            f'{sp["step_wall_ms"]:.3f} ms ({sp["step_images_per_sec"]:.0f} '
+            f'img/s, median of the last epoch); device {dev}; spawn to '
+            f'first step {sp["spawn_to_first_step_s"]:.1f} s; card {smi}')
+
+
 def main(argv=None):
     import argparse
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ['--dp-cli-rank']:       # one process of phase 39
+        profiled = argv[2:3] == ['--profiled']
+        dp_cli_rank(argv[1], argv[2 + profiled:], profiled)
+        return 0
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-38; see the module text).')
+                                'GPU (phases 1-39; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
-                   help='phases 1-2 and 37 only: the sweep in one process '
-                        'and, with 2 or more cards, on min(cards, 4) NCCL '
-                        'ranks (the four-card check)')
+                   help='phases 1-2, 37 and 39 only: the sweep in one '
+                        'process and, with 2 or more cards, on min(cards, '
+                        '4) NCCL ranks; the data-parallel CLI on 1 rank '
+                        'and, with 2 or more cards, on 2 and min(cards, 4) '
+                        '(the four-card check)')
     p.add_argument('--h2h-only', action='store_true',
                    help='phases 1-2, then the recorded head-to-head matrix '
                         'through the harness\'s port leg (13 runs of 12 '
@@ -2601,7 +3182,9 @@ def main(argv=None):
 
     if args.sweep_only or args.h2h_only:
         if args.sweep_only:
-            print(json.dumps({'sweep': sweep_phase(dev, smi)}), flush=True)
+            sweep = sweep_phase(dev, smi)
+            dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, True))
+            print(json.dumps({'sweep': sweep, 'dp_cli': dp_cli}), flush=True)
         if args.h2h_only:
             h2h_matrix(dev, smi, args.h2h_out)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
@@ -3093,6 +3676,9 @@ def main(argv=None):
     # ------------------------------------------------------------- 38
     h2h = h2h_phase(dev, smi)
 
+    # ------------------------------------------------------------- 39
+    dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, False))
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -3149,6 +3735,15 @@ def main(argv=None):
         # shape, (64, 64, 64, 3)
         'launches_h2h': h2h['launches'],
         'shape_h2h': h2h['shape'],
+        # phase 39: the data-parallel CLI through torchrun, each rank's
+        # launches a world (the one process's beside them), and dequant
+        # at a rank's rows of a 4096 batch on 4 and on 2 cards
+        'launches_dp_cli_per_rank': {
+            str(w): r['launches_per_rank']
+            for w, r in dp_cli['worlds'].items()},
+        'launches_dp_cli_one_process': dp_cli['one_process']['launches'],
+        'shape_1024': dp_cli['shapes'][0],
+        'shape_2048': dp_cli['shapes'][1],
     }, {
         'name': 'augment',
         'route': 'cuda',

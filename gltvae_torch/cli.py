@@ -329,6 +329,8 @@ def run(args, sup: float, mesh=None):
         logger.info('Test Accuracy (best model): %.3f', acc)
     if main_rank:
         _write_result_json(param_dir, result, acc, str(trainer.device))
+    if mesh is not None:
+        mesh.barrier()      # no rank leaves before rank 0's files are written
     return acc
 
 

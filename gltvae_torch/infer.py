@@ -27,7 +27,11 @@ under ``torchrun --nproc-per-node=N``; one process is a mesh of one):
 size; each rank decodes its rows of each batch, runs them through the
 dequant kernel and ``predict_probs`` (the global batch's draws, its rows,
 with ``--stochastic``), the probabilities are gathered in rank order and
-rank 0 writes the CSV, the one-process CSV.
+rank 0 writes the CSV. It is the one-process CSV at ``--batch-size``
+wherever a row's arithmetic does not depend on the rows labelled with it
+(the CPU; ``parallel/dp.py``); on a card, the deterministic labels equal
+one process's at ``--batch-size`` / world, the rows a card labels at
+once.
 """
 
 from __future__ import annotations
@@ -171,6 +175,18 @@ def write_rows(writer, names, probs: np.ndarray) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch.distributed as dist
+    owned = not dist.is_initialized()      # a group this run joins, it ends
+    try:
+        return label(args)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def label(args):
+    """Label ``args.images`` into ``args.output`` (``main``'s work, in the
+    group ``--mesh`` joins)."""
     from gltvae_torch import resolve_device
     from gltvae_torch.data.celeba import ImageFolderDataset, _SplitData
     from gltvae_torch.data.pipeline import BatchLoader
@@ -233,6 +249,8 @@ def main(argv=None):
                            probs.cpu().numpy()[:len(batch_names)])
     finally:
         it.close()
+    if mesh is not None:
+        mesh.barrier()      # no rank leaves before rank 0's CSV is written
     wall = time.perf_counter() - t0
     print(f'{len(names)} images -> {args.output} ({len(names) / wall:.1f} '
           f'img/s on {device}, decode included)')

@@ -19,7 +19,12 @@ takes it as ``dp``, so gltvae's ``make_parallel_train_steps`` is
 chunk, resident, eval and ELBO makers. With it
 - eval draws the global batch's eval noise and keeps its rows; accuracy is
   the mean of the all-gathered per-label matches, the global batch's value
-  bit for bit; the ELBO is the mean over ranks of the local means;
+  bit for bit wherever a row's arithmetic does not depend on the rows run
+  with it (the CPU here; on a card cuDNN may round a call of B/D rows
+  otherwise than one of B: at bf16 on H100s, 9 of 448 inference rows of
+  2 ranks sat a 4th decimal from one process's at B = 256, and equal to
+  its rows at B = 128); the ELBO is the mean over ranks of the local
+  means;
 - a resident split lives as this rank's ⌈N/D⌉ rows (``place_resident_
   split``, padded with zero rows) and each dispatch exchanges only the rows
   its batches need (``gather_rows``: one all_reduce of a buffer where each

@@ -7,11 +7,12 @@ program on its own device and the collectives are explicit, NCCL on CUDA
 devices and gloo on the CPU. ``Mesh`` records what a rank needs to know:
 its rank, the world size, its device, the backend and the group.
 
-Ranks start under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``;
-``create_mesh`` joins the group), or with ``initialize_multihost`` given
-the coordinator's address, the number of processes and this process's id
-(train.py's ``--dist-*`` flags). A process with neither is a world of 1
-with no group, whose collectives are no-ops.
+Ranks start under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``; ``create_mesh`` joins the group, one process too), or
+with ``initialize_multihost`` given the coordinator's address, the number
+of processes and this process's id (train.py's ``--dist-*`` flags). A
+process with neither is a world of 1 with no group, whose collectives are
+no-ops.
 
 Gloo takes CUDA tensors only in ``all_reduce`` and ``broadcast``, so
 ``all_gather`` on gloo is an ``all_reduce`` SUM of a zero-filled buffer
@@ -108,14 +109,22 @@ def _backend(dev: torch.device) -> str:
     return 'nccl' if dev.type == 'cuda' else 'gloo'
 
 
+def _launched() -> bool:
+    """This process is a rank that torchrun started: ``env://`` has the
+    rank and the rendezvous address it needs, or the world is larger than
+    one."""
+    return (int(os.environ.get('WORLD_SIZE', '1')) > 1
+            or ('RANK' in os.environ and 'MASTER_ADDR' in os.environ))
+
+
 def create_mesh(device=None) -> Mesh:
     """The mesh of this process: from an initialized default group, else
-    from torchrun's environment (``WORLD_SIZE`` > 1: joins the group,
-    NCCL on CUDA, gloo on the CPU), else a world of 1 with no group. A
-    bare 'cuda' device becomes the rank's card, ``LOCAL_RANK`` (or the rank
-    modulo the cards), and the current CUDA device."""
-    if not dist.is_initialized() and int(os.environ.get('WORLD_SIZE',
-                                                        '1')) > 1:
+    from torchrun's environment (joins the group, NCCL on CUDA, gloo on
+    the CPU; a single torchrun process is a group of one), else a world of
+    1 with no group. A bare 'cuda' device becomes the rank's card,
+    ``LOCAL_RANK`` (or the rank modulo the cards), and the current CUDA
+    device, before the group is joined."""
+    if not dist.is_initialized() and _launched():
         dev = _rank_device(device, int(os.environ.get('LOCAL_RANK', '0')))
         dist.init_process_group(_backend(dev), init_method='env://')
     if not dist.is_initialized():

@@ -257,6 +257,72 @@ def cli(mesh, where, argv: list) -> dict:
         str(world), '--dist-process-id', str(rank)])}
 
 
+def cli_files(mesh, where, argv: list, slow_rank0: bool = False) -> dict:
+    """``cli`` on this rank with its end-of-training and restored states'
+    digests (``chip_smoke.state_digest``), the paths it wrote and, just
+    after ``cli.main`` returns, whether the run's result.json exists. With
+    `slow_rank0` rank 0 sleeps before writing result.json, so a rank that
+    does not wait for it returns first."""
+    import time
+
+    import chip_smoke
+    from gltvae_torch import cli as tcli
+    from gltvae_torch.train.loop import Trainer
+    trainers, final, written = [], {}, []
+
+    def on_train(fn):
+        def run(self, *a, **k):
+            trainers.append(self)
+            out = fn(self, *a, **k)
+            final['digest'] = chip_smoke.state_digest(self.state)
+            return out
+        return run
+
+    def slow(fn):
+        def run(*a, **k):
+            time.sleep(2.0)
+            return fn(*a, **k)
+        return run
+    undo = [chip_smoke.patched(Trainer, 'train', on_train),
+            chip_smoke.written_paths(written)]
+    if slow_rank0 and where[0] == 0:
+        undo.append(chip_smoke.patched(tcli, '_write_result_json', slow))
+    try:
+        result = cli(None, where, argv)['result']
+    finally:
+        for u in reversed(undo):
+            u()
+    out_dir = os.path.abspath(argv[argv.index('--output-dir') + 1])
+    run_dir = os.path.join(out_dir, 'params_0.5_learnable')
+    return {'result': result, 'final': final['digest'],
+            'restored': chip_smoke.state_digest(trainers[-1].state),
+            'written': sorted({os.path.relpath(p, out_dir) for p in written
+                               if p.startswith(out_dir + os.sep)}),
+            'result_json_on_return': os.path.exists(
+                os.path.join(run_dir, 'result.json'))}
+
+
+def infer_slow(mesh, argv: list) -> dict:
+    """``infer`` with rank 0 sleeping before each batch's rows are written;
+    this rank's count of CSV rows just after ``infer.main`` returns."""
+    import time
+
+    from gltvae_torch import infer as tinfer
+    write = tinfer.write_rows
+
+    def slow(*a, **k):
+        time.sleep(1.0)
+        return write(*a, **k)
+    if mesh.rank == 0:
+        tinfer.write_rows = slow
+    try:
+        out = tinfer.main(argv)
+    finally:
+        tinfer.write_rows = write
+    with open(out) as f:
+        return {'rows_on_return': len(f.read().splitlines())}
+
+
 def resume(mesh, run_dir: str) -> dict:
     """2 epochs, then a new Trainer resumed into a 4-epoch schedule (the
     JAX package's tests/test_trainer_mesh_e2e.py resume case)."""
@@ -307,4 +373,4 @@ def sweep(mesh, batch: int, batches: list) -> list:
 SCENARIOS = {'steps': steps, 'sweep': sweep, 'shardmap': shardmap,
              'trainer': trainer, 'trainer_set': trainer_set,
              'debug_nans': debug_nans, 'resume': resume, 'infer': infer,
-             'cli': cli}
+             'cli': cli, 'cli_files': cli_files, 'infer_slow': infer_slow}

@@ -2,6 +2,7 @@
 2,100-image parity corpus, bs 64), judged from the committed records.
 
     python -m tests.torch_f2_rule [--json out.json]
+    python -m tests.torch_f2_rule --fresh [--json out.json]
 
 - A: the port's card seeds 0-19
   (``docs/artifacts/posterior_locs_seed_panel_torch.json`` for 0-4,
@@ -18,6 +19,15 @@ within 0.06 of the reference's five-seed mean 0.648. R2: in
 0.01/3 and each tensor's at least 0.001/(number of tensors). R3: d = C - B,
 |mean(d)| under 2·sd(d)/sqrt(20) and under 0.03. Standard deviations are
 sample ones (n - 1). F2 closes as seed variance only if all three hold.
+
+``--fresh`` judges R1' instead, the same statistic over fresh seeds
+40-69, 30 a side: A2 the port's card runs
+(``one_one_seed_panel_torch_fresh.json``, ``python -m
+gltvae_torch.seed_panel --seeds 40 ... 69 --locs relu``), B2 gltvae's CPU
+runs (``one_one_seed_panel_gltvae_cpu_fresh.json``, ``python
+tools/seed_panel.py --platform cpu --seeds 40 ... 69 --locs relu``). F2
+closes as seed variance if R1' holds, and stays open as a gap of the whole
+pipeline, confirmed on fresh seeds, if it fails.
 
 Beside the rule, ``one_one_twin_cpu.json`` (``tests/torch_f2_twin.py
 --legs twin``: the port's training from gltvae's init with gltvae's draws
@@ -36,6 +46,7 @@ ART = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'docs', 'artifacts')
 REFERENCE_MEAN = 0.648
 SEEDS = range(20)
+FRESH_SEEDS = range(40, 70)
 
 
 def _panel(name, seeds):
@@ -53,6 +64,32 @@ def records():
         report = json.load(f)
     c = [report[str(s)]['gltvae_init'] for s in SEEDS]
     return np.asarray(a), np.asarray(b), np.asarray(c)
+
+
+def fresh_records():
+    """(A2, B2): the port's card runs and gltvae's CPU runs at seeds
+    40-69."""
+    return (np.asarray(_panel('one_one_seed_panel_torch_fresh.json',
+                              FRESH_SEEDS)),
+            np.asarray(_panel('one_one_seed_panel_gltvae_cpu_fresh.json',
+                              FRESH_SEEDS)))
+
+
+def fresh_verdict(r):
+    """F2's verdict from R1' alone."""
+    return ('closed as seed variance (R1\' holds)' if r['holds'] else
+            'open: R1\' failed, a gap of the whole pipeline confirmed on '
+            'fresh seeds')
+
+
+def r1_line(name, x, n):
+    return (f"{name}: mean({'A2' if n == 30 else 'A'}) {x['mean_a']:.4f} "
+            f"(sd {x['sd_a']:.4f}), mean({'B2' if n == 30 else 'B'}) "
+            f"{x['mean_b']:.4f} (sd {x['sd_b']:.4f}); Welch t "
+            f"{x['welch_t']:.3f} (|t| < 2.0); "
+            f"{'A2' if n == 30 else 'A'} {x['a_off_reference']:+.4f} and "
+            f"{'B2' if n == 30 else 'B'} {x['b_off_reference']:+.4f} off "
+            f"0.648 (within 0.06): {'holds' if x['holds'] else 'FAILS'}")
 
 
 def r1(a, b):
@@ -109,17 +146,31 @@ def split_d(b, c):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument('--json', default=None)
+    p.add_argument('--fresh', action='store_true',
+                   help="R1' over the fresh seeds 40-69 instead")
     args = p.parse_args(argv)
+    if args.fresh:
+        a2, b2 = fresh_records()
+        out = {'R1_fresh': r1(a2, b2), 'seeds': list(FRESH_SEEDS),
+               'a2': a2.tolist(), 'b2': b2.tolist()}
+        print(r1_line("R1'", out['R1_fresh'], len(a2)))
+        out['verdict'] = fresh_verdict(out['R1_fresh'])
+        print(f"F2: {out['verdict']}")
+    else:
+        out = judge()
+    if args.json:
+        with open(args.json, 'w') as f:
+            json.dump(out, f, indent=2, default=float)
+    return out
+
+
+def judge():
+    """R1-R3 and the verdict from the committed records, printed."""
     a, b, c = records()
     with open(os.path.join(ART, 'one_one_init_census_cpu.json')) as f:
         census = json.load(f)
     out = {'R1': r1(a, b), 'R2': r2(census), 'R3': r3(b, c)}
-    x = out['R1']
-    print(f"R1: mean(A) {x['mean_a']:.4f} (sd {x['sd_a']:.4f}), mean(B) "
-          f"{x['mean_b']:.4f} (sd {x['sd_b']:.4f}); Welch t "
-          f"{x['welch_t']:.3f} (|t| < 2.0); A {x['a_off_reference']:+.4f} "
-          f"and B {x['b_off_reference']:+.4f} off 0.648 (within 0.06): "
-          f"{'holds' if x['holds'] else 'FAILS'}")
+    print(r1_line('R1', out['R1'], len(a)))
     x = out['R2']
     print('R2: ' + ', '.join(f'{k} KS p {v["ks_p"]:.4g}' for k, v in
                              x['statistics'].items())
@@ -144,9 +195,6 @@ def main(argv=None):
         print(f"{name.replace('_', ' ')}: mean {x['mean']:+.4f}, sd "
               f"{x['sd']:.4f}, 2·sd/sqrt(20) {x['two_se']:.4f}, "
               f"{x['negative']} of 20 negative")
-    if args.json:
-        with open(args.json, 'w') as f:
-            json.dump(out, f, indent=2, default=float)
     return out
 
 
