@@ -35,8 +35,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    4 augment launches of 1,024 images and 6 dequant launches (eval only);
 10. one augmented sup and one augmented unsup step, card vs CPU;
 11. phase 5's run again, resident and with both splits shipped from the
-    host: every u8 batch bit-equal, metrics within phase 6's tolerance,
-    both step medians;
+    host, captured: every u8 batch bit-equal (a step's as its static
+    input holds it, gathered on the card or copied in), metrics within
+    phase 6's tolerance, both step medians;
 12. dequant bit-equal to its plain version at (256, 128, 128, 3) and
     (256, 218, 178, 3) (a partial last tile), timed beside its bound;
 13. the 128 px path: celeba128 (z=100, y=40) at bf16 with input and
@@ -181,12 +182,40 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     kernels apart) from a separate one-epoch run of the same command whose
     dispatches 4-11 are profiled; dequant timed at (1024, 64, 64, 3) and
     (2048, 64, 64, 3). Each process that fails or outlives 600 s fails the
-    phase (its session killed).
+    phase (its session killed);
+40. the captured train step (``train/graphs.py``, gltvae's jitted step):
+    (a) phase 5's model, 16 steps of the sup 0.5 interleave from one
+    state, the temperature decayed halfway, eagerly (``jit=False``) and
+    captured, on cuDNN's deterministic algorithms: params, Adam m and v
+    and every metric bit-equal, or else within ``F32_TOL`` with the
+    largest gap and its leaf printed; 16 dequant launches each, the
+    captured ones counted at the replays; (b) the same for phase 13's
+    128 px bf16 + s2d + remat 'dots' model under ``BF16_TOL``; (c) phase
+    5's Trainer run with ``jit=True`` and ``jit=False``: metrics.csv equal
+    row for row and the test accuracy equal; (d) a ``graphs_speed:`` JSON
+    line for each of the plain step (bs 256, f32) and the sweep step
+    (``dp_sweep()[0]``, bs 4096, bf16), eager and captured, run in turns:
+    the median synchronized step wall of 50 steps, img/s, device ms a
+    step and the busy share, host launches a step (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ... from torch.profiler), peak memory, the
+    Trainer meter of (c), the card's name and power limit; (e) the
+    tally of the graph audit (``audit_graphs``).
+
+Phases 5, 9, 11, 13, 18-22, 27-29 and 33-38 train through captured steps
+(the Trainer's default on one device); phase 30's run without a mesh is
+eager (held bit for bit to the mesh of one, whose steps are eager);
+phases 31 and 39 run on meshes. The dequant launches of captured steps
+are counted at their replays (``train/graphs.py``), and every train step
+captured in this process is audited at its capture (``audit_graphs``,
+after phase 2): its graph must hold the dequant kernel as often as the
+capture counted. Phase 40 (e) prints the audit's tally; phases 37 and 40
+(d) also print how many dequant kernels torch.profiler saw run.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37 and
 39 alone (the check to run on four cards: phase 39 then also at D = 2
-and min(cards, 4), one rank a card). ``--h2h-only`` runs phases 1-2,
+and min(cards, 4), one rank a card); ``--graphs-only`` runs phases 1-2
+and 40. ``--h2h-only`` runs phases 1-2,
 then the recorded head-to-head matrix through the harness in one workdir
 (9 cells at 12 epochs but fixed/one-one sup=1.0 at 30, and that cell at
 12 epochs with training seeds 1-4), one line a cell, and ``--h2h-out DIR``
@@ -390,10 +419,13 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
     then check the run: 16 steps, dequant launched once per train step and
     eval batch and augment never, finite metrics, every parameter moved,
     the temperature decayed twice, a test accuracy in [0, 1]. `record`
-    gets a copy of every uint8 batch a step dequantizes. Returns what the
+    gets a copy of every uint8 batch a step or an eval pass dequantizes:
+    a captured step's as its static input holds it after the copy in or
+    the gather, an eager pass's where it dequantizes. Returns what the
     run measured."""
     import torch
     import gltvae_torch.train.steps as tsteps
+    from gltvae_torch.train.graphs import CapturedStep
     from gltvae_torch.data.pipeline import BatchLoader
     from gltvae_torch.ops import preprocess
     from gltvae_torch.ops.gating import cooccurrence_gating_matrix
@@ -413,11 +445,33 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
     trainer._resident_chunk = synced(trainer._resident_chunk, step_s)
     trainer._sup_step = synced(trainer._sup_step, step_s)
     trainer._unsup_step = synced(trainer._unsup_step, step_s)
-    prep = tsteps._prep_image
+    undo = []
     if record is not None:
-        tsteps._prep_image = lambda x, size: (
-            record.append(x.clone()) if x.dtype == torch.uint8 else None,
-            prep(x, size))[1]
+        inside = []         # a captured step's device part is running
+
+        def keep(x):
+            if x.dtype == torch.uint8:
+                record.append(x.clone())
+
+        def device_part(f):
+            def run(self, state):
+                inside.append(1)
+                try:
+                    return f(self, state)
+                finally:
+                    inside.pop()
+            return run
+
+        def filled(f):
+            def run(self, *a):
+                f(self, *a)
+                keep(self.x)
+            return run
+        undo = [patched(tsteps, '_prep_image', lambda f: lambda x, size: (
+                    None if inside else keep(x), f(x, size))[1]),
+                patched(CapturedStep, '_run', device_part),
+                patched(CapturedStep, 'load', filled),
+                patched(CapturedStep, 'gather', filled)]
     cuda = dev.type == 'cuda'
     try:
         sync(dev)
@@ -432,7 +486,8 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
         augment_launches = preprocess.augment_launches
         wall = time.perf_counter() - t0
     finally:
-        tsteps._prep_image = prep
+        for u in undo:
+            u()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     steps = trainer.state.step
     eval_batches = 2 * loaders['valid'].epoch_batches \
@@ -493,6 +548,75 @@ def patched(obj, name, wrap):
     orig = getattr(obj, name)
     setattr(obj, name, wrap(orig))
     return lambda: setattr(obj, name, orig)
+
+
+#: The dequant kernel's name in torch.profiler's device events
+#: (gltvae_torch/csrc/dequant.cu).
+DEQUANT_KERNEL = 'dequant_kernel'
+
+
+def device_launches(events, kernel=DEQUANT_KERNEL):
+    """How many times `kernel` ran on the card among torch.profiler's
+    `events` (``key_averages()``), the kernels of a graph's replays
+    included: the launches a replay makes without calling a wrapper."""
+    import torch
+    return sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in e.key)
+
+
+def audit_graphs():
+    """From here on, each train step captured in this process keeps its
+    graph (``keep_graph``) and is audited at its capture: the graph's
+    kernel nodes (``CUDAGraph.debug_dump``) must hold the dequant kernel
+    as often as the capture counted (``CapturedStep.dequant_launches``),
+    the launches each replay adds to ``preprocess.launches``. A graph that
+    differs fails the phase that captured it. Returns the running tally
+    {'graphs': ..., 'dequant_nodes': ...}; the audit stays on."""
+    import warnings
+
+    import torch
+    from gltvae_torch.train import graphs
+    tally = {'graphs': 0, 'dequant_nodes': 0}
+    dump = os.path.join(ROOT, 'build', 'graph_audit.dot')
+    os.makedirs(os.path.dirname(dump), exist_ok=True)
+
+    def capture(fn, pool):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+        graph.instantiate()
+        return graph, out
+
+    def audited(f):
+        def run(self, state):
+            f(self, state)
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                self.graph.debug_dump(dump)
+            with open(dump) as fh:
+                nodes = fh.read().count(DEQUANT_KERNEL)
+            os.remove(dump)
+            check(nodes == self.dequant_launches,
+                  f'a captured step\'s graph holds {nodes} dequant kernel '
+                  f'nodes; its capture counted {self.dequant_launches}')
+            tally['graphs'] += 1
+            tally['dequant_nodes'] += nodes
+        return run
+    patched(graphs, '_cuda_capture', lambda f: capture)
+    patched(graphs.CapturedStep, '_capture', audited)
+    return tally
+
+
+def audit_line(tally):
+    """Phase 40's line for audit_graphs' tally (none audited fails)."""
+    check(tally['graphs'] > 0, 'no captured graph was audited')
+    phase(40, f'(e) every train step captured in this process audited at '
+              f'its capture: {tally["graphs"]} graphs holding '
+              f'{tally["dequant_nodes"]} dequant kernel nodes, each graph '
+              f'as many as its capture counted (the launches its replays '
+              f'add to the count)')
 
 
 def recorder(log):
@@ -792,8 +916,10 @@ def celeba_phases(dev, smi):
     check(set(dr_loaders) == {k for k, ld in dr_loaders.items()
                               if id(ld) in trainer._resident_data},
           'device resize: a split did not go resident')
-    check(dr_launches == (12, 0) and seen == [full] * 12
-          and resized == [(BATCH, 218, 178, 3)] * 12,
+    # a captured step calls the wrappers at its warm-up and capture only,
+    # so the shapes are held as a set and the launches by the count
+    check(dr_launches == (12, 0) and set(seen) == {full}
+          and set(resized) == {(BATCH, 218, 178, 3)},
           f'device resize: launches {dr_launches}, dequant shapes {seen}, '
           f'resize inputs {resized}; expected 12 (8 steps, 2 valid, 2 '
           f'test) at {full}')
@@ -1525,7 +1651,7 @@ def dp_phases(dev, smi, ref5, model_cfg, train_cfg, splits, model_a,
         runs = [train_and_test(label, model_cfg, train_cfg, splits, dev,
                                f'chip_smoke_mesh1_{i}', **kw)
                 for i, (label, kw) in enumerate((
-                    ('phase 5 again, deterministic', {}),
+                    ('phase 5 again, deterministic', dict(jit=False)),
                     ('mesh of one, deterministic', dict(mesh=mesh))))]
     finally:
         pmesh.shutdown()
@@ -2057,6 +2183,7 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
         walls = []
         m = pair(walls)
         events = []
+        counted = preprocess.launches
         if cuda:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 pair()
@@ -2066,12 +2193,13 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
             pair()
         sync(dev)
         launches = preprocess.launches
+        counted = launches - counted
         peak = (torch.cuda.max_memory_allocated(dev) - held) if cuda else 0
     finally:
         undo()
     check(all(math.isfinite(float(v)) for v in m.values()),
           f'{name}: metrics not finite at B={B}')
-    check(launches == 6 and seen == [(B, 64, 64, 3)] * 6,
+    check(launches == 6 and set(seen) == {(B, 64, 64, 3)},
           f'{name}: dequant launches {launches} at {seen}, expected 6 at '
           f'{(B, 64, 64, 3)}')
     table = kernel_table(events, 2, 5) if events else None
@@ -2080,7 +2208,10 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
               f'{model_cfg.gate_subtype}, sup {train_cfg.perc_supervision}, '
               f'{model_cfg.compute_dtype}) at global batch {B} in one '
               f'process: a sup and an unsup step, 3 times each; dequant '
-              f'launches {launches} at {(B, 64, 64, 3)}')
+              f'launches {launches} at {(B, 64, 64, 3)}'
+              + (f'; of the profiled pair\'s {counted}, torch.profiler '
+                 f'saw {device_launches(events)} run on the card'
+                 if cuda else ''))
     dev_ms = table['device_ms_per_dispatch'] if table else float('nan')
     print(f'slice_sweep: step wall sup {walls[0] * 1e3:.3f} ms, unsup '
           f'{walls[1] * 1e3:.3f} ms (first {first[0] * 1e3:.1f} / '
@@ -3110,6 +3241,308 @@ def dp_cli_line(label, sp, smi):
             f'first step {sp["spawn_to_first_step_s"]:.1f} s; card {smi}')
 
 
+#: The CUDA runtime and driver calls that put work on a stream from the
+#: host, as torch.profiler names them (phase 40's host launches a step):
+#: kernel launches, graph launches, and the copies and fills that go to
+#: the copy engines (a contiguous device-to-device ``copy_`` or
+#: ``clone`` is a ``cudaMemcpyAsync``, not a kernel).
+LAUNCH_APIS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+               'cuLaunchKernelEx', 'cudaGraphLaunch', 'cudaMemcpyAsync',
+               'cudaMemsetAsync')
+
+#: Phase 40's steps: 16 of the sup 0.5 interleave (sup on even steps), the
+#: gating temperature decayed once halfway, as at an epoch's end.
+GRAPH_STEPS = 16
+#: Phase 40's timed steps a speed line (after 4 warm-up steps), and the
+#: profiled steps after them.
+SPEED_STEPS, SPEED_PROFILED = 50, 10
+
+
+def graph_batches(image_size, y_dim, n, dev, seed=40):
+    """`n` (x u8, y f32) batches of BATCH rows on `dev`, from the seed."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(rng.randint(
+                0, 256, (BATCH, image_size, image_size, 3)).astype(
+                    np.uint8)).to(dev),
+             torch.from_numpy((rng.rand(BATCH, y_dim) > 0.5).astype(
+                 np.float32)).to(dev)) for _ in range(n)]
+
+
+def eager_vs_captured(model_cfg, train_cfg, mu, batches, kinds, temps, dev):
+    """The steps `kinds` (True: sup) on device `batches` at the gating
+    temperatures `temps`, from one initial state, eagerly
+    (``make_train_steps(jit=False)``) and captured (``jit=True``).
+    Returns whether every metric, param and Adam moment is bit-equal, the
+    worst gap of each measure with where it is ('metrics' rel; 'params',
+    'adam_m', 'adam_v' max abs over the leaf's largest value; 'adam_m_l2',
+    'adam_v_l2' rel L2 over all leaves) and each run's dequant launches."""
+    import torch
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.state import create_train_state, init_model
+    from gltvae_torch.train.steps import make_train_steps
+    runs = []
+    for jit in (False, True):
+        model = init_model(model_cfg, train_cfg, mu, dev)
+        state = create_train_state(model, train_cfg)
+        steps = make_train_steps(model, train_cfg, jit=jit)
+        sync(dev)
+        launches0 = preprocess.launches
+        mets = []
+        for (x, y), sup, temp in zip(batches, kinds, temps):
+            _, m = steps[0 if sup else 1](state, x, y, temp)
+            mets.append(m)
+        sync(dev)
+        runs.append(dict(
+            state=state.state_dict(), launches=preprocess.launches - launches0,
+            metrics=[{k: v.detach().float().cpu() for k, v in m.items()}
+                     for m in mets]))
+        del model, state, steps, mets
+    eager, capt = runs
+    worst = {k: (0.0, '') for k in ('metrics', 'params', 'adam_m', 'adam_v',
+                                    'adam_m_l2', 'adam_v_l2')}
+
+    def note(key, val, where):
+        if val > worst[key][0]:
+            worst[key] = (val, where)
+
+    equal = all(eager['state'][k] == capt['state'][k]
+                for k in ('step', 'adam_count'))
+    for i, (a, b) in enumerate(zip(eager['metrics'], capt['metrics'])):
+        for k in a:
+            equal &= torch.equal(a[k], b[k])
+            note('metrics', float((a[k] - b[k]).abs())
+                 / max(float(a[k].abs()), 1e-6), f'step {i} {k}')
+    for key in ('params', 'adam_m', 'adam_v'):
+        want, got = eager['state'][key], capt['state'][key]
+        for k, ref in want.items():
+            equal &= torch.equal(got[k], ref)
+            note(key, float((got[k] - ref).abs().max())
+                 / max(float(ref.abs().max()), 1e-30), k)
+        if key != 'params':
+            a, b = (torch.cat([d[k].flatten() for k in want])
+                    for d in (want, got))
+            note(f'{key}_l2', float((b - a).norm() / a.norm()), key)
+    return dict(equal=bool(equal), worst=worst,
+                launches=(eager['launches'], capt['launches']))
+
+
+def hold_captured(label, res, tol):
+    """Phase 40's rule: the captured steps bit-equal to the eager ones, or
+    else within `tol` (card_vs_cpu's keys; a key missing from `tol` is
+    printed, not held), with the largest gap and its leaf printed."""
+    w = res['worst']
+    if res['equal']:
+        return 'bit-equal (metrics, params, Adam m and v)'
+    print(f'  {label}: not bit-equal; largest gaps: ' + '; '.join(
+        f'{k} {v:.3e} at {where}' for k, (v, where) in w.items()),
+        flush=True)
+    bad = [k for k in ('metrics', 'adam_m', 'adam_v', 'adam_m_l2',
+                       'adam_v_l2') if k in tol and w[k][0] > tol[k]]
+    check(not bad, f'{label}: captured steps differ from the eager ones '
+          f'beyond the tolerance ({bad})')
+    return (f'within tolerance, not bit-equal: metrics max rel '
+            f'{w["metrics"][0]:.3e}, Adam m {w["adam_m"][0]:.3e}, v '
+            f'{w["adam_v"][0]:.3e} of leaf max, params {w["params"][0]:.3e} '
+            f'of leaf max at {w["params"][1]}')
+
+
+def step_speed(model_cfg, train_cfg, mu, batches, dev, jit):
+    """Sup and unsup steps alternating on two device `batches`, eagerly or
+    captured: the median synchronized step wall over `steps` steps (after
+    4 warm-up steps, which capture), then `profiled` steps under
+    torch.profiler: device ms a step (the sum of the device's kernel,
+    copy and fill times), host launches a step by runtime call, the
+    dequant launches counted and those torch.profiler saw run on the card,
+    and the peak memory above what was held before the model was made. `steps` and
+    `profiled` are SPEED_STEPS and SPEED_PROFILED."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train.state import create_train_state, init_model
+    from gltvae_torch.train.steps import make_train_steps
+    cuda = dev.type == 'cuda'
+    steps, profiled = SPEED_STEPS, SPEED_PROFILED
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    model = init_model(model_cfg, train_cfg, mu, dev)
+    state = create_train_state(model, train_cfg)
+    fns = make_train_steps(model, train_cfg, jit=jit)
+
+    def one(i):
+        x, y = batches[i % 2]
+        return fns[i % 2](state, x, y, 1.0)[1]
+    for i in range(4):
+        m = one(i)
+    walls = []
+    for i in range(steps):
+        sync(dev)
+        t = time.perf_counter()
+        m = one(i)
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync(dev)
+    counted = preprocess.launches
+    with profile(activities=acts) as prof:
+        for i in range(profiled):
+            m = one(i)
+        sync(dev)
+    counted = preprocess.launches - counted
+    check(all(math.isfinite(float(v)) for v in m.values()),
+          'step speed: metrics not finite')
+    events = prof.key_averages()
+    # reported, not held: torch.profiler has missed one of a window's
+    # graph kernels now and then; the graphs themselves are audited at
+    # their capture (audit_graphs)
+    ran = device_launches(events) if cuda else None
+    device_ms = (sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 / 1e3 / profiled) if cuda else float('nan')
+    launches = {e.key: e.count / profiled for e in events
+                if e.key in LAUNCH_APIS}
+    wall_ms = statistics.median(walls) * 1e3
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**20 if cuda \
+        else 0.0
+    del model, state, fns
+    return dict(jit=jit, steps=steps, wall_ms=wall_ms,
+                img_s=len(batches[0][0]) / wall_ms * 1e3,
+                device_ms=device_ms, busy=device_ms / wall_ms,
+                launches=launches, launches_total=sum(launches.values()),
+                dequant_counted=counted, dequant_on_card=ran,
+                peak_mib=peak)
+
+
+def graphs_phase(dev, smi):
+    """Phase 40: the captured train step (train/graphs.py) against the
+    eager one. (a) phase 5's model, 16 steps of the sup 0.5 interleave
+    from one state on cuDNN's deterministic algorithms; (b) the same for
+    phase 13's 128 px bf16 + s2d + remat 'dots' model; (c) phase 5's
+    two-epoch Trainer run with jit=True and jit=False: metrics.csv row for
+    row and the test accuracy equal; (d) speed lines, eager and captured,
+    for the plain step (bs 256, f32) and the sweep step
+    (``dp_sweep()[0]``, batch 4096, bf16). Returns the captured run's
+    dequant launches of (a), (b) and (c)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gltvae_torch.config import celeba128, default_celeba64, dp_sweep
+    from gltvae_torch.data.synthetic import synthetic_splits
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model_cfg, train_cfg = default_celeba64(sup=0.5, n_epochs=2,
+                                                batch_size=BATCH)
+        model_128, train_128 = celeba128(sup=0.5, n_epochs=2,
+                                         batch_size=BATCH, remat='dots')
+        model_128 = dataclasses.replace(model_128, compute_dtype='bfloat16',
+                                        input_s2d=True, output_s2d=True)
+        kinds = [i % 2 == 0 for i in range(GRAPH_STEPS)]
+        for key, mcfg, tcfg_, tol in (('plain', model_cfg, train_cfg,
+                                       F32_TOL),
+                                      ('128', model_128, train_128,
+                                       BF16_TOL)):
+            batches = graph_batches(mcfg.image_size, mcfg.y_dim,
+                                    GRAPH_STEPS, dev)
+            mu = cooccurrence_gating_matrix(
+                torch.cat([y for _, y in batches]).cpu().numpy())
+            t0 = tcfg_.gating_temp_for(mcfg)
+            temps = [t0 * (0.99 if i >= GRAPH_STEPS // 2 else 1.0)
+                     for i in range(GRAPH_STEPS)]
+            res = eager_vs_captured(mcfg, tcfg_, mu, batches, kinds, temps,
+                                    dev)
+            check(res['launches'] == (GRAPH_STEPS, GRAPH_STEPS),
+                  f'{key}: dequant launches {res["launches"]}, expected '
+                  f'{GRAPH_STEPS} eager and captured')
+            verdict = hold_captured(key, res, tol)
+            out[key] = res['launches'][1]
+            phase(40, f'({"a" if key == "plain" else "b"}) '
+                      f'{mcfg.image_size} px {mcfg.compute_dtype} '
+                      f'(s2d {mcfg.input_s2d}/{mcfg.output_s2d}, remat '
+                      f'{tcfg_.remat}), bs {BATCH}, {GRAPH_STEPS} steps '
+                      f'of the sup 0.5 interleave from one state, eager '
+                      f'vs captured on cuDNN\'s deterministic algorithms: '
+                      f'{verdict}; dequant launches {res["launches"]}')
+            del batches
+
+        # (c) the Trainer, phase 5's run
+        splits = synthetic_splits(n_train=8 * BATCH, n_valid=2 * BATCH,
+                                  n_test=2 * BATCH, sup_frac=0.5,
+                                  image_size=model_cfg.image_size,
+                                  y_dim=model_cfg.y_dim,
+                                  learnable_signal=True)
+        runs = {jit: train_and_test(f'phase 5, jit={jit}', model_cfg,
+                                    train_cfg, splits, dev,
+                                    f'chip_smoke_jit_{jit}', jit=jit)
+                for jit in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    strip = lambda rows: [{k: v for k, v in r.items() if k != 'time'}
+                          for r in rows]
+    same_rows = strip(runs[True]['rows']) == strip(runs[False]['rows'])
+    check(same_rows and runs[True]['test_acc'] == runs[False]['test_acc'],
+          'Trainer: the captured run\'s metrics.csv or test accuracy '
+          'differs from the eager run\'s')
+    out['trainer'] = runs[True]['launches']
+    meter = {jit: r['result']['images_per_sec'] for jit, r in runs.items()}
+    phase(40, f'(c) phase 5\'s Trainer run (2 epochs, resident, '
+              f'deterministic cuDNN) with jit=True and jit=False: '
+              f'metrics.csv equal row for row ({len(runs[True]["rows"])} '
+              f'rows), test accuracy {runs[True]["test_acc"]:.4f} both; '
+              f'dequant launches {runs[True]["launches"]} and '
+              f'{runs[False]["launches"]}')
+    del runs
+
+    # (d) speed, eager and captured, in turns (eager, captured, captured,
+    # eager); each line's numbers are its second run
+    name, sweep_model, sweep_train = dp_sweep()[0]
+    sweep_train = dataclasses.replace(sweep_train, batch_size=SWEEP_BATCH)
+    sweep_b, _ = sweep_inputs(SWEEP_BATCH, 0)
+    plain_b = [(x.cpu().numpy(), y.cpu().numpy())
+               for x, y in graph_batches(model_cfg.image_size,
+                                         model_cfg.y_dim, 2, dev)]
+    out['speed'] = {}
+    for label, mcfg, tcfg_, host in (
+            ('plain', model_cfg, train_cfg, plain_b),
+            ('sweep', sweep_model, sweep_train, sweep_b)):
+        mu = cooccurrence_gating_matrix(host[0][1]).astype(np.float32)
+        batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+                   for x, y in host]
+        got = {}
+        for jit in (False, True, True, False):
+            got[jit] = step_speed(mcfg, tcfg_, mu, batches, dev, jit)
+        for jit in (False, True):
+            s = got[jit]
+            rec = dict(step=label, mode='captured' if jit else 'eager',
+                       batch=len(host[0][0]), dtype=mcfg.compute_dtype,
+                       wall_ms_median=s['wall_ms'], img_s=s['img_s'],
+                       device_ms=s['device_ms'], busy=s['busy'],
+                       host_launches=s['launches'],
+                       host_launches_total=s['launches_total'],
+                       dequant_counted=s['dequant_counted'],
+                       dequant_seen_by_profiler=s['dequant_on_card'],
+                       profiled_steps=SPEED_PROFILED,
+                       peak_mib=s['peak_mib'],
+                       trainer_meter_img_s=(meter[jit] if label == 'plain'
+                                            else None),
+                       card=smi)
+            out['speed'][f'{label}_{rec["mode"]}'] = rec
+            print('graphs_speed: ' + json.dumps(rec), flush=True)
+        del batches
+    phase(40, f'(d) speed of the plain step (bs {BATCH}, f32) and the '
+              f'sweep step ({name}, bs {SWEEP_BATCH}, bf16), eager and '
+              f'captured: the graphs_speed lines above (median of '
+              f'{SPEED_STEPS} synchronized steps, device ms and host '
+              f'launches from {SPEED_PROFILED} profiled steps)')
+    return out
+
+
 def main(argv=None):
     import argparse
     argv = sys.argv[1:] if argv is None else argv
@@ -3118,7 +3551,7 @@ def main(argv=None):
         dp_cli_rank(argv[1], argv[2 + profiled:], profiled)
         return 0
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-39; see the module text).')
+                                'GPU (phases 1-40; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
                    help='phases 1-2, 37 and 39 only: the sweep in one '
                         'process and, with 2 or more cards, on min(cards, '
@@ -3129,6 +3562,9 @@ def main(argv=None):
                    help='phases 1-2, then the recorded head-to-head matrix '
                         'through the harness\'s port leg (13 runs of 12 '
                         'or 30 epochs on the 2,100-image parity corpus)')
+    p.add_argument('--graphs-only', action='store_true',
+                   help='phases 1-2 and 40 only: the captured train steps '
+                        'against the eager ones, and their speed')
     p.add_argument('--h2h-out', default=None,
                    help='with --h2h-only: a folder to copy the results, the '
                         'report and the walls into')
@@ -3180,7 +3616,14 @@ def main(argv=None):
                                        'spill')):
                 print(f'  ptxas {name}: {line.strip()}')
 
-    if args.sweep_only or args.h2h_only:
+    audited = audit_graphs()
+
+    if args.sweep_only or args.h2h_only or args.graphs_only:
+        if args.graphs_only:
+            graphs = graphs_phase(dev, smi)
+            audit_line(audited)
+            print(json.dumps({'graphs': graphs, 'graphs_audited': audited}),
+                  flush=True)
         if args.sweep_only:
             sweep = sweep_phase(dev, smi)
             dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, True))
@@ -3526,6 +3969,8 @@ def main(argv=None):
     # ------------------------------------------------------------- 11
     # the same run with both splits shipped from the host: the same bytes
     # must reach every step and eval batch
+    # (captured steps: the resident run gathers each batch into a step's
+    # static input, the shipped one copies it in)
     recs, runs = {}, {}
     for how, kw in (('resident', {}), ('shipped', dict(
             resident_train='off', resident_eval='off'))):
@@ -3679,6 +4124,10 @@ def main(argv=None):
     # ------------------------------------------------------------- 39
     dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, False))
 
+    # ------------------------------------------------------------- 40
+    graphs = graphs_phase(dev, smi)
+    audit_line(audited)
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -3744,6 +4193,12 @@ def main(argv=None):
         'launches_dp_cli_one_process': dp_cli['one_process']['launches'],
         'shape_1024': dp_cli['shapes'][0],
         'shape_2048': dp_cli['shapes'][1],
+        # phase 40: the captured steps of (a) and (b), one launch a
+        # replay, and the captured Trainer run of (c)
+        'launches_graphs': graphs['plain'],
+        'launches_graphs_128': graphs['128'],
+        'launches_graphs_trainer': graphs['trainer'],
+        'graphs_audited': audited,
     }, {
         'name': 'augment',
         'route': 'cuda',

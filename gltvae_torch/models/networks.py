@@ -44,6 +44,7 @@ decoder's NCHW channels come out in that order.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -127,6 +128,13 @@ def s2d_conv1(x, weight, bias, dtype):
 _S2D_TAPS = ((3, 1, 4), (4, 2, 0))
 
 
+@functools.lru_cache(maxsize=8)
+def _s2d_taps(device: torch.device) -> torch.Tensor:
+    """``_S2D_TAPS`` on `device`, copied there once: a captured train step
+    (train/graphs.py) may not copy from the host."""
+    return torch.tensor(_S2D_TAPS, device=device)
+
+
 def s2d_conv_transpose_last(h, weight, bias, dtype):
     """The decoder's last 4x4/s2 'SAME' transposed conv in space-to-depth
     form: one 3x3 stride-1 conv (padding 1) over the input, NCHW, whose
@@ -136,7 +144,7 @@ def s2d_conv_transpose_last(h, weight, bias, dtype):
     (r, s, co) at input offset (d, e) takes weight[:, co, ky, kx] with ky =
     S2D_TAPS[r][d], kx = S2D_TAPS[s][e] (see ``_S2D_TAPS``)."""
     cin, cout = weight.shape[:2]
-    taps = torch.tensor(_S2D_TAPS, device=weight.device)
+    taps = _s2d_taps(weight.device)
     wp = F.pad(weight, (0, 1, 0, 1))                    # zero row/col 4
     g = wp[:, :, taps[:, :, None, None], taps[None, None]]   # ci co r d s e
     k3 = g.permute(2, 4, 1, 0, 3, 5).reshape(4 * cout, cin, 3, 3)

@@ -39,13 +39,20 @@ def _linear_weights(src: int, dst: int) -> np.ndarray:
     return out / out.sum(axis=1, keepdims=True)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_weights(src: int, dst: int, device: torch.device) -> torch.Tensor:
+    """``_linear_weights`` on `device`, copied there once: a captured train
+    step (train/graphs.py) may not copy from the host."""
+    return torch.from_numpy(_linear_weights(src, dst)).to(device)
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """(B, H, W, C) f32 -> (B, out_h, out_w, C) by two contractions on
     ``x``'s device."""
     _, h, w, _ = x.shape
     if (h, w) == (out_h, out_w):
         return x
-    a_h = torch.from_numpy(_linear_weights(h, out_h)).to(x.device)
-    a_w = torch.from_numpy(_linear_weights(w, out_w)).to(x.device)
+    a_h = _device_weights(h, out_h, x.device)
+    a_w = _device_weights(w, out_w, x.device)
     x = torch.einsum('bhwc,Hh->bHwc', x, a_h)
     return torch.einsum('bHwc,Ww->bHWc', x, a_w)

@@ -49,6 +49,11 @@ def sample_gating(mu, temperature, generator=None, g1=None, g2=None,
         # scalar as a multiply by its reciprocal
         temperature = torch.full((), float(temperature), dtype=mu.dtype,
                                  device=mu.device)
+    elif temperature.device != mu.device:
+        # a CPU 0-d tensor would enter a CUDA divide as a Python scalar
+        # does; a captured step's static temperature lives on μ's device
+        raise ValueError(f'temperature on {temperature.device}, gates on '
+                         f'{mu.device}')
     inv_t = 1.0 / temperature
     num = torch.exp((g2 - g1) / temperature)
     t1 = torch.pow(mu, inv_t)

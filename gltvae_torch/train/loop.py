@@ -50,10 +50,21 @@ Rank 0 alone writes metrics.csv, events, μ exports and checkpoints, and
 the others wait at a barrier after each save; every rank restores the same
 checkpoint on resume; the throughput meter counts global images.
 
+**Captured steps** (``jit``, by default on one device; gltvae's jitted
+steps): on one device every train step is a CUDA graph, captured at its
+first call for each step kind and input shape and replayed from then on
+(``train/graphs.py``); a chunk of n steps is n replays. The Trainer passes
+the gating temperature at every step, so the per-epoch decay reaches the
+graph's static temperature; a resume restores the state into its own
+tensors. ``jit=False`` runs the plain eager steps, for comparison. On a
+mesh the steps are eager by default (they are not captured yet), and
+``jit=True`` there raises. Eval and ELBO passes stay eager.
+
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
 for NaN and names the first op that made one (``utils/debug_nans.py``,
-the counterpart of ``jax_debug_nans``).
+the counterpart of ``jax_debug_nans``); a captured dispatch with a NaN is
+replayed op by op through the eager step.
 """
 
 from __future__ import annotations
@@ -77,10 +88,10 @@ from gltvae_torch.train.checkpoint import (CheckpointManager,
 from gltvae_torch.train.metrics import MetricsLogger, Throughput
 from gltvae_torch.train.state import create_train_state, init_model, step_seed
 from gltvae_torch.train.steps import (
-    make_mixed_scan_train_step, make_resident_elbo_step,
-    make_resident_eval_step, make_resident_mixed_scan_train_step,
-    make_resident_scan_train_steps, make_scan_elbo_step, make_scan_eval_step,
-    make_train_steps)
+    make_resident_elbo_step, make_resident_eval_step,
+    make_resident_mixed_scan_train_step, make_resident_scan_train_steps,
+    make_scan_elbo_step, make_scan_eval_step, make_train_steps, mixed_chunk,
+    resolve_jit)
 from gltvae_torch.utils.debug_nans import nan_checked
 
 logger = logging.getLogger(__name__)
@@ -106,8 +117,12 @@ class Trainer:
                  resident_eval_max_bytes: int = 768 * 2**20,
                  resident_train: str = 'auto',
                  resident_train_max_bytes: int = 3 * 2**30,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False,
+                 jit: Optional[bool] = None):
         check_supported(model_cfg, train_cfg, mesh=mesh)
+        # captured train steps by default on one device; a mesh's are
+        # eager, and asking for captured ones there raises
+        self._jit = resolve_jit(jit, mesh)
         for name, mode in (('resident_eval', resident_eval),
                            ('resident_train', resident_train)):
             if mode not in ('auto', 'off'):
@@ -136,11 +151,11 @@ class Trainer:
         self.model = model
         self.state = create_train_state(model, train_cfg)
         self._replicate()
-        self._sup_step, self._unsup_step = make_train_steps(model, train_cfg,
-                                                            dp)
+        self._sup_step, self._unsup_step = make_train_steps(
+            model, train_cfg, dp, jit=self._jit)
         # a chunk of n > 1 steps: the same steps in a loop, each kind as
         # its flag says (uniform chunks are mixed chunks of one kind)
-        self._chunk_step = (make_mixed_scan_train_step(model, train_cfg, dp)
+        self._chunk_step = (mixed_chunk(self._sup_step, self._unsup_step)
                             if self.steps_per_dispatch > 1 else None)
         self._scan_eval = make_scan_eval_step(model, train_cfg, dp)
         self._scan_elbo = make_scan_elbo_step(model, train_cfg, dp)
@@ -150,12 +165,20 @@ class Trainer:
                                                            dp)
         self._debug_nans = debug_nans
         if debug_nans:
+            # a dispatch with a NaN is replayed op by op through the eager
+            # step (as jax_debug_nans re-runs a jitted call de-optimised)
+            eager = {}
+            if self._jit:
+                sup, unsup = make_train_steps(model, train_cfg, jit=False)
+                eager = {'_sup_step': sup, '_unsup_step': unsup,
+                         '_chunk_step': mixed_chunk(sup, unsup)}
             for name in ('_sup_step', '_unsup_step', '_chunk_step',
                          '_scan_eval', '_scan_elbo', '_resident_eval_step',
                          '_resident_elbo_step'):
                 fn = getattr(self, name)
                 if fn is not None:
-                    setattr(self, name, nan_checked(fn, mesh))
+                    setattr(self, name, nan_checked(fn, mesh,
+                                                    eager.get(name)))
         # 'auto' = resident when the splits fit their budget; 'off' = always
         # shipped from the host
         self._resident_eval_mode = resident_eval
@@ -529,15 +552,16 @@ class Trainer:
         on first use."""
         fn = self._resident_train_fns.get(kind)
         if fn is None:
-            if kind == 'mixed':
-                fn = make_resident_mixed_scan_train_step(self.model,
-                                                         self.cfg, self._dp)
-            else:
-                fns = make_resident_scan_train_steps(self.model, self.cfg,
-                                                     self._dp)
-                fn = fns[kind == 'unsup']
+            def make(jit: bool):
+                if kind == 'mixed':
+                    return make_resident_mixed_scan_train_step(
+                        self.model, self.cfg, self._dp, jit=jit)
+                return make_resident_scan_train_steps(
+                    self.model, self.cfg, self._dp, jit=jit)[kind == 'unsup']
+            fn = make(self._jit)
             if self._debug_nans:
-                fn = nan_checked(fn, self.mesh)
+                fn = nan_checked(fn, self.mesh,
+                                 make(False) if self._jit else None)
             self._resident_train_fns[kind] = fn
         return fn
 

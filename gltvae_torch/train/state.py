@@ -99,17 +99,38 @@ def keras_alpha(count: int, lr: float, b1: float = 0.9,
     return float(f(lr) * np.sqrt(f(1.0) - f(b2) ** t) / (f(1.0) - f(b1) ** t))
 
 
+def next_alpha(state: TrainState, lr: float, b1: float = 0.9,
+               b2: float = 0.999,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Advance the Adam count (on the host) and return the step's alpha,
+    ``keras_alpha`` of the new count, as a 0-d float32 tensor on the
+    state's device: filled into `out` (a captured step's static alpha) or
+    a new tensor. A fill, not a host copy, so it does not wait for the
+    device."""
+    state.adam_count += 1
+    alpha = keras_alpha(state.adam_count, lr, b1, b2)
+    if out is None:
+        return torch.full((), alpha, dtype=torch.float32,
+                          device=state.device)
+    return out.fill_(alpha)
+
+
 @torch.no_grad()
 def keras_adam_update(state: TrainState, grads: Dict[str, torch.Tensor],
                       lr: float, b1: float = 0.9, b2: float = 0.999,
-                      eps: float = 1e-7) -> None:
+                      eps: float = 1e-7,
+                      alpha: Optional[torch.Tensor] = None) -> None:
     """One Keras Adam step on the trainable parameters, in place. `grads`
     maps parameter names to gradients; names Adam does not track (a frozen
-    μ) are ignored."""
-    state.adam_count += 1
-    alpha = keras_alpha(state.adam_count, lr, b1, b2)
-    params = state.trainable()
-    for n, p in params.items():
+    μ) are ignored. `alpha` is the step's 0-d alpha tensor from
+    ``next_alpha``, whose call advanced the count; without it the count is
+    advanced here. alpha enters as a device tensor so that a captured step
+    reads it from memory at each replay: ``-alpha * m`` rounds as it did
+    with alpha a Python float (one f32 multiply either way;
+    tests/test_torch_graphs.py holds them bit-equal)."""
+    if alpha is None:
+        alpha = next_alpha(state, lr, b1, b2)
+    for n, p in state.trainable().items():
         g = grads[n]
         m = b1 * state.adam_m[n] + (1.0 - b1) * g
         v = b2 * state.adam_v[n] + (1.0 - b2) * g * g

@@ -2,12 +2,16 @@
 
 ``make_train_steps`` returns (sup_step, unsup_step):
 ``(state, x, y, gating_temp, noise=None) -> (state, metrics)``. A step
-dequantizes a uint8 batch on the device (the dequant kernel; an augmented
-batch arrives as f32 already) and resizes a full-resolution one
-(``_prep_image``), draws its noise from the state's per-step generator
-unless ``noise`` is given, takes the loss and its gradient, and applies
-Keras Adam in place. ``metrics`` holds 0-d device tensors, so a step never
-waits for the device.
+draws its noise from the state's per-step generator unless ``noise`` is
+given and advances the Adam count (its host part), then dequantizes a
+uint8 batch on the device (the dequant kernel; an augmented batch arrives
+as f32 already) and resizes a full-resolution one (``_prep_image``),
+takes the loss and its gradient, and applies Keras Adam in place (its
+device part). ``metrics`` holds 0-d device tensors, so a step never waits
+for the device. By default on one device the steps are captured
+(``jit``): the device part is a CUDA graph replayed at every step on a
+CUDA device (``train/graphs.py``, gltvae's jitted steps); ``jit=False``
+runs it eagerly.
 
 ``TrainConfig.remat`` recomputes the loss's forward in the backward pass
 (``torch.utils.checkpoint``): 'none', 'full' (keeps only the loss's
@@ -18,8 +22,9 @@ convolutions and ``bmm`` included: what the JAX package's
 not a ``dot_general``). The noise is drawn before the loss, so nothing
 inside a recomputed region draws.
 
-The multi-batch forms are Python loops of these steps with the same draws,
-so they equal the per-batch calls bit for bit:
+The multi-batch forms are Python loops of these steps with the same draws
+(a chunk of n captured steps is n replays), so they equal the per-batch
+calls bit for bit:
 - ``make_scan_train_steps`` / ``make_mixed_scan_train_step``: chunks of
   ``steps_per_dispatch > 1`` over a stacked [n, B, ...] batch;
 - ``make_scan_eval_step`` / ``make_scan_elbo_step``: eval chunks, one
@@ -27,7 +32,8 @@ so they equal the per-batch calls bit for bit:
 - the resident builders (``make_resident_*``): the split lives on the
   device and each batch is gathered from it by an [n, B] index tensor
   (``index_select`` of uint8 rows, then the dequant kernel), so the
-  gathered bytes equal what the host would have shipped.
+  gathered bytes equal what the host would have shipped (a captured
+  step gathers them into its static input).
 
 Every maker takes ``dp``, a ``parallel.dp.DataParallel``, which makes its
 steps the data-parallel ones of parallel/dp.py (gltvae's
@@ -48,7 +54,9 @@ from gltvae_torch.models.ccvae import CCVAE, Temps
 from gltvae_torch.ops.preprocess import dequant
 from gltvae_torch.ops.resize import resize_bilinear
 from gltvae_torch.ops.sampling import sample_gumbel
-from gltvae_torch.train.state import TrainState, keras_adam_update
+from gltvae_torch.train.graphs import JitStep
+from gltvae_torch.train.state import (TrainState, keras_adam_update,
+                                      next_alpha)
 
 
 def draw_noise(model: CCVAE, batch: int, supervised: bool, k: int,
@@ -110,13 +118,37 @@ def remat(fn: Callable, mode: str) -> Callable:
     return wrapped
 
 
-def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None
+def resolve_jit(jit: Optional[bool], dp) -> bool:
+    """Whether train steps are captured: by default on one device; with
+    `dp` (a ``DataParallel``, or the Trainer's mesh) they are eager, and
+    asking for both raises."""
+    if jit and dp is not None:
+        raise ValueError(
+            'jit=True on a mesh: the data-parallel step is not captured yet '
+            '(ROADMAP Queue 4, "the data-parallel step with NCCL '
+            'captured"); pass jit=False')
+    return dp is None if jit is None else jit
+
+
+def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                     jit: Optional[bool] = None
                      ) -> Tuple[Callable, Callable]:
     """(sup_step, unsup_step) for `model`; each updates the state in place
     and returns it with the step's metrics. With `dp`
     (``parallel.dp.DataParallel``) they are the data-parallel steps: x, y
     are this rank's rows, `noise` is the global batch's draws, and the
-    gradients and metrics are averaged over the ranks."""
+    gradients and metrics are averaged over the ranks.
+
+    A step is a host part (the noise, the Adam count and alpha, the step
+    counter) and a device part (input stage, loss, gradient, Keras Adam,
+    metrics). With `jit` (the default on one device) the steps are
+    ``graphs.JitStep``s: on a CUDA device the device part is a CUDA graph,
+    captured once per input shape and dtype and replayed at each step
+    (gltvae's ``jax.jit(step, donate_argnums=(0,))``); on the CPU the same
+    static-buffer path runs eagerly. ``jit=False`` gives the plain eager
+    steps, which the data-parallel steps always are: ``jit=True`` with
+    `dp` raises."""
+    jit = resolve_jit(jit, dp)
     gating_reg = train_cfg.gating_reg if model.cfg.mu_trainable else 0.0
     k = train_cfg.classifier_mc_samples
     size = model.cfg.image_size
@@ -131,43 +163,64 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None
     sup_loss = remat(sup_loss, train_cfg.remat)
     unsup_loss = remat(unsup_loss, train_cfg.remat)
 
-    def _apply(state: TrainState, loss, aux):
-        params = state.trainable()
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
-        metrics = _metrics(loss, aux)
-        if dp is not None:
-            grads, metrics = dp.average(grads, metrics)
-        keras_adam_update(state, grads, train_cfg.lr, eps=train_cfg.adam_eps)
-        state.step += 1
-        return state, metrics
+    def device_part(supervised: bool) -> Callable:
+        """(state, x, y, gating_temp, alpha, noise) -> metrics: everything
+        of a step that runs on the device, reading nothing back."""
+        def part(state: TrainState, x, y, gating_temp, alpha, noise):
+            x = _prep_image(x, size)
+            temps = Temps(gating=gating_temp)
+            if supervised:
+                loss, aux = sup_loss(state.model, x, y.to(torch.float32),
+                                     temps, noise)
+            else:               # unsupervised: labels unused
+                loss, aux = unsup_loss(state.model, x, temps, noise)
+            params = state.trainable()
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+            metrics = _metrics(loss, aux)
+            if dp is not None:
+                grads, metrics = dp.average(grads, metrics)
+            keras_adam_update(state, grads, train_cfg.lr,
+                              eps=train_cfg.adam_eps, alpha=alpha)
+            return metrics
+        return part
 
-    def _noise(state: TrainState, b: int, supervised: bool, noise):
-        if dp is not None:
-            return dp.local_noise(state, b, supervised, k, noise)
-        if noise is None:
-            noise = draw_noise(state.model, b, supervised, k,
-                               state.next_generator())
-        return noise
+    def host_noise(supervised: bool) -> Callable:
+        """(state, b, noise) -> the step's draws: `noise` when given, else
+        drawn from the state's per-step generator (on a mesh, this rank's
+        rows of the global batch's)."""
+        def draws(state: TrainState, b: int, noise):
+            if dp is not None:
+                return dp.local_noise(state, b, supervised, k, noise)
+            if noise is None:
+                noise = draw_noise(state.model, b, supervised, k,
+                                   state.next_generator())
+            return noise
+        return draws
 
-    def sup_step(state: TrainState, x, y, gating_temp,
+    def eager(supervised: bool) -> Callable:
+        part, draws = device_part(supervised), host_noise(supervised)
+
+        def step(state: TrainState, x, y, gating_temp,
                  noise: Optional[dict] = None):
-        x = _prep_image(x, size)
-        noise = _noise(state, x.shape[0], True, noise)
-        loss, aux = sup_loss(state.model, x, y.to(torch.float32),
-                             Temps(gating=gating_temp), noise)
-        return _apply(state, loss, aux)
+            noise = draws(state, x.shape[0], noise)
+            alpha = next_alpha(state, train_cfg.lr)
+            metrics = part(state, x, y, gating_temp, alpha, noise)
+            state.step += 1
+            return state, metrics
+        step.__name__ = 'sup_step' if supervised else 'unsup_step'
+        return step
 
-    def unsup_step(state: TrainState, x, y, gating_temp,
-                   noise: Optional[dict] = None):
-        del y  # unsupervised: labels unused
-        x = _prep_image(x, size)
-        noise = _noise(state, x.shape[0], False, noise)
-        loss, aux = unsup_loss(state.model, x, Temps(gating=gating_temp),
-                               noise)
-        return _apply(state, loss, aux)
+    if not jit:
+        return eager(True), eager(False)
+    dev = model.mu.device
+    pool = torch.cuda.graph_pool_handle() if dev.type == 'cuda' else None
+    return tuple(JitStep(device_part(s), host_noise(s), train_cfg.lr, dev,
+                         pool) for s in (True, False))
 
-    return sup_step, unsup_step
+
+def _stack(mets):
+    return {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
 
 def _run_chunk(sup, unsup, state: TrainState, batches: Iterable,
@@ -178,16 +231,31 @@ def _run_chunk(sup, unsup, state: TrainState, batches: Iterable,
     for (x, y), m in zip(batches, sup_mask):
         state, met = (sup if m else unsup)(state, x, y, gating_temp)
         mets.append(met)
-    return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+    return state, _stack(mets)
 
 
-def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
-                               dp=None) -> Callable:
-    """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]):
-    inner step j runs the sup step where sup_mask[j], else the unsup step,
-    on xs[j], ys[j]."""
-    sup, unsup = make_train_steps(model, train_cfg, dp)
+def _run_gathered(sup, unsup, state: TrainState, sources: Iterable, idxs,
+                  sup_mask: Sequence[bool], gating_temp):
+    """Resident inner steps on one device: step j trains on rows idxs[j]
+    of sources[j] (images, labels), gathered into a captured step's static
+    inputs (``JitStep.gathered``) or, for a plain step, into new
+    tensors."""
+    mets = []
+    for (images, labels), i, m in zip(sources, idxs, sup_mask):
+        step = sup if m else unsup
+        if isinstance(step, JitStep):
+            state, met = step.gathered(state, images, labels, i, gating_temp)
+        else:
+            state, met = step(state, images.index_select(0, i),
+                              labels.index_select(0, i), gating_temp)
+        mets.append(met)
+    return state, _stack(mets)
 
+
+def mixed_chunk(sup: Callable, unsup: Callable) -> Callable:
+    """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]) of
+    the steps `sup` and `unsup`: inner step j runs `sup` where
+    sup_mask[j], else `unsup`, on xs[j], ys[j]."""
     def chunk(state: TrainState, xs, ys, sup_mask: Sequence[bool],
               gating_temp):
         if not len(xs) == len(ys) == len(sup_mask):
@@ -198,11 +266,22 @@ def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
     return chunk
 
 
-def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None
+def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
+                               dp=None, jit: Optional[bool] = None
+                               ) -> Callable:
+    """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]):
+    inner step j runs the sup step where sup_mask[j], else the unsup step,
+    on xs[j], ys[j]. `jit` as ``make_train_steps``: a chunk of n steps is
+    n replays."""
+    return mixed_chunk(*make_train_steps(model, train_cfg, dp, jit))
+
+
+def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                          jit: Optional[bool] = None
                           ) -> Tuple[Callable, Callable]:
     """Uniform chunks (scan_sup, scan_unsup):
     (state, xs, ys, gating_temp) -> (state, metrics [n])."""
-    chunk = make_mixed_scan_train_step(model, train_cfg, dp)
+    chunk = make_mixed_scan_train_step(model, train_cfg, dp, jit)
 
     def make(sup: bool):
         def scan(state: TrainState, xs, ys, gating_temp):
@@ -222,32 +301,40 @@ def _resident_batches(dp, images, labels, idxs):
 
 
 def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig,
-                                   dp=None) -> Tuple[Callable, Callable]:
+                                   dp=None, jit: Optional[bool] = None
+                                   ) -> Tuple[Callable, Callable]:
     """Device-resident training chunks (scan_sup, scan_unsup):
     (state, images [N, H, W, C] u8, labels [N, y] f32, idxs [n, B] int,
     gating_temp) -> (state, metrics [n]). Inner step j trains on rows
-    idxs[j], gathered on the device. With `dp`, images are this rank's
-    resident rows (``parallel.dp.place_resident_split``)."""
-    sup, unsup = make_train_steps(model, train_cfg, dp)
+    idxs[j], gathered on the device (captured steps gather them into their
+    static inputs). With `dp`, images are this rank's resident rows
+    (``parallel.dp.place_resident_split``)."""
+    sup, unsup = make_train_steps(model, train_cfg, dp, jit)
 
     def make(kind: bool):
         def scan(state: TrainState, images, labels, idxs, gating_temp):
-            batches = _resident_batches(dp, images, labels, idxs)
-            return _run_chunk(sup, unsup, state, batches,
-                              [kind] * len(idxs), gating_temp)
+            mask = [kind] * len(idxs)
+            if dp is None:
+                return _run_gathered(sup, unsup, state,
+                                     [(images, labels)] * len(idxs), idxs,
+                                     mask, gating_temp)
+            return _run_chunk(sup, unsup, state,
+                              _resident_batches(dp, images, labels, idxs),
+                              mask, gating_temp)
         return scan
     return make(True), make(False)
 
 
 def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
-                                        dp=None) -> Callable:
+                                        dp=None, jit: Optional[bool] = None
+                                        ) -> Callable:
     """Semi-supervised resident chunks: (state, images_sup, labels_sup,
     images_unsup, labels_unsup, idxs [n, B], sup_mask [n], gating_temp) ->
     (state, metrics [n]). Row j of idxs indexes the sup split where
     sup_mask[j], else the unsup split: the row stream the host path's
     ``next(sup_iter if flag else unsup_iter)`` consumes. With `dp`, one
     exchange a split gathers the rows of its steps."""
-    sup, unsup = make_train_steps(model, train_cfg, dp)
+    sup, unsup = make_train_steps(model, train_cfg, dp, jit)
 
     def chunk(state: TrainState, images_sup, labels_sup, images_unsup,
               labels_unsup, idxs, sup_mask: Sequence[bool], gating_temp):
@@ -255,21 +342,18 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
             raise ValueError(f'{len(idxs)} index rows and {len(sup_mask)} '
                              'flags')
         if dp is None:
-            batches = (((images_sup if m else images_unsup)
-                        .index_select(0, i),
-                        (labels_sup if m else labels_unsup)
-                        .index_select(0, i))
-                       for i, m in zip(idxs, sup_mask))
-        else:
-            got = {}
-            for kind, images, labels in ((True, images_sup, labels_sup),
-                                         (False, images_unsup,
-                                          labels_unsup)):
-                js = [j for j, m in enumerate(sup_mask) if m == kind]
-                if js:
-                    got.update(zip(js, dp.resident_batches(
-                        images, labels, idxs[js])))
-            batches = (got[j] for j in range(len(sup_mask)))
+            sources = [(images_sup, labels_sup) if m
+                       else (images_unsup, labels_unsup) for m in sup_mask]
+            return _run_gathered(sup, unsup, state, sources, idxs, sup_mask,
+                                 gating_temp)
+        got = {}
+        for kind, images, labels in ((True, images_sup, labels_sup),
+                                     (False, images_unsup, labels_unsup)):
+            js = [j for j, m in enumerate(sup_mask) if m == kind]
+            if js:
+                got.update(zip(js, dp.resident_batches(
+                    images, labels, idxs[js])))
+        batches = (got[j] for j in range(len(sup_mask)))
         return _run_chunk(sup, unsup, state, batches, sup_mask, gating_temp)
     return chunk
 

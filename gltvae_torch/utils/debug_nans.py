@@ -19,7 +19,9 @@ a NaN, forward or backward (anomaly mode adds the forward call that made
 the failing backward node). The op-by-op check is on only for that replay,
 so a clean dispatch never stops at a masked NaN (the μ≥1 hardening in
 ``ops/sampling.py``). A clean dispatch pays a copy of the state and one
-wait for the device.
+wait for the device. A captured train step (train/graphs.py) launches a
+graph, not ops, so its replay runs the eager step instead (``replay=``),
+from the same state and the same per-step draws.
 
 On a mesh (``nan_checked(fn, mesh)``) the dispatch holds collectives, so
 every rank must replay or none: the "a NaN is present" decision is
@@ -108,11 +110,16 @@ def _restore(saved) -> None:
             obj.set_state(snap)
 
 
-def nan_checked(fn: Callable, mesh=None) -> Callable:
+def nan_checked(fn: Callable, mesh=None,
+                replay: Optional[Callable] = None) -> Callable:
     """`fn` (a dispatch taking a TrainState or a torch.Generator among its
     positional arguments, or neither) that raises FloatingPointError where
     ``jax_debug_nans`` would; on a ``parallel.mesh.Mesh``, on every rank
-    together. See the module docstring."""
+    together. `replay` is the dispatch the op-by-op check runs in `fn`'s
+    place: the eager form of a captured step, since a graph's replay
+    dispatches no op. See the module docstring."""
+    replay = fn if replay is None else replay
+
     @functools.wraps(fn)
     def run(*args, **kwargs):
         saved = _snapshot(args)
@@ -130,11 +137,12 @@ def nan_checked(fn: Callable, mesh=None) -> Callable:
         first = _FirstNaN(record=mesh is not None)
         with torch.autograd.set_detect_anomaly(True, check_nan=mesh is None), \
                 first:
-            fn(*args, **kwargs)
+            replay(*args, **kwargs)
         if first.first is not None:
             raise FloatingPointError(first.first)
+        name = getattr(fn, '__name__', type(fn).__name__)
         raise FloatingPointError(
-            f'invalid value (nan) in the output of {fn.__name__}; the op by '
+            f'invalid value (nan) in the output of {name}; the op by '
             f'op replay made none' + (' on this rank' if mesh is not None
                                       else ''))
     return run
