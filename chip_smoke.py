@@ -92,7 +92,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     loader's first epoch a permutation of its split;
 29. ``python -m gltvae_torch.bench`` at reduced sizes (10 chunks of 4
     steps, eval over 2,048 images, e2e over 512 JPEGs): its JSON line
-    (printed as ``bench: ...``) with every key bench.py fills set;
+    (printed as ``bench: ...``) with every key bench.py fills set, and
+    each roofline's FLOPs and rate above 0;
 30. a mesh of one rank over NCCL (``parallel.mesh.initialize_multihost``
     with a TCP coordinator and one process): phase 5's run through
     ``Trainer(mesh=)`` equals phase 5's run without a mesh bit for bit
@@ -198,24 +199,47 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     the median synchronized step wall of 50 steps, img/s, device ms a
     step and the busy share, host launches a step (``cudaLaunchKernel``,
     ``cudaGraphLaunch``, ... from torch.profiler), peak memory, the
-    Trainer meter of (c), the card's name and power limit; (e) the
-    tally of the graph audit (``audit_graphs``).
+    Trainer meter of (c), the card's name and power limit;
+41. gltvae's compiled eval, ELBO and multi-step dispatches as CUDA graphs
+    (``train/graphs.py``), on cuDNN's deterministic algorithms for
+    (a)-(d): (a) phase 5's and phase 13's models, eval and ELBO passes
+    over 512-image valid and test splits, resident epochs and chunked
+    passes of 4 batches, stochastic and deterministic, captured against
+    eager: values and the eval generator's state after bit-equal, dequant
+    launches n a replay, and draws into static slices equal to fresh
+    draws; (b) both models, 16 steps of the interleave in chunks of 4, 4,
+    4, 3 and 1 (three mask patterns), shipped and gathered from resident
+    splits, and as 16 captured single steps, each against 16 eager steps
+    (bit-equal, or else within ``F32_TOL`` / ``BF16_TOL`` with the gaps
+    printed); (c) phase 9's augmented steps, per step and chunked at n =
+    4, bit-equal to the eager augment then step, the augment launched
+    inside the graphs; (d) phase 5's Trainer at steps_per_dispatch 4 and
+    phase 9's augmented Trainer run with jit=True and jit=False:
+    metrics.csv equal row for row and the test accuracy equal; (e)
+    ``graphs_speed:`` lines for the eval passes (2,048 images, resident
+    and in chunks of 4), a chunk of 4 plain steps, of 4 sweep steps and an
+    augmented step, each eager, as per-batch or per-step replays and as
+    one graph (median synchronized wall, img/s, device ms, busy, host
+    launches, peak memory, the card), then phase 5's Trainer meter
+    captured and eager on the default algorithms; (f) the tally of the
+    graph audit (``audit_graphs``).
 
-Phases 5, 9, 11, 13, 18-22, 27-29 and 33-38 train through captured steps
-(the Trainer's default on one device); phase 30's run without a mesh is
-eager (held bit for bit to the mesh of one, whose steps are eager);
-phases 31 and 39 run on meshes. The dequant launches of captured steps
-are counted at their replays (``train/graphs.py``), and every train step
-captured in this process is audited at its capture (``audit_graphs``,
-after phase 2): its graph must hold the dequant kernel as often as the
-capture counted. Phase 40 (e) prints the audit's tally; phases 37 and 40
-(d) also print how many dequant kernels torch.profiler saw run.
+Phases 5, 9, 11, 13, 18-22, 27-29 and 33-38 train and evaluate through
+captured programs (the Trainer's default on one device); phase 30's run
+without a mesh is eager (held bit for bit to the mesh of one, whose
+dispatches are eager); phases 31 and 39 run on meshes. The dequant and
+augment launches of captured programs are counted at their replays
+(``train/graphs.py``), and every program captured in this process is
+audited at its capture (``audit_graphs``, after phase 2): its graph must
+hold the dequant and the augment kernel as often as the capture counted.
+Phase 41 (f) prints the audit's tally; phases 37 and 40 (d) also print
+how many dequant kernels torch.profiler saw run.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37 and
 39 alone (the check to run on four cards: phase 39 then also at D = 2
-and min(cards, 4), one rank a card); ``--graphs-only`` runs phases 1-2
-and 40. ``--h2h-only`` runs phases 1-2,
+and min(cards, 4), one rank a card); ``--graphs-only`` runs phases 1-2,
+40 and 41. ``--h2h-only`` runs phases 1-2,
 then the recorded head-to-head matrix through the harness in one workdir
 (9 cells at 12 epochs but fixed/one-one sup=1.0 at 30, and that cell at
 12 epochs with training seeds 1-4), one line a cell, and ``--h2h-out DIR``
@@ -420,12 +444,13 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
     eval batch and augment never, finite metrics, every parameter moved,
     the temperature decayed twice, a test accuracy in [0, 1]. `record`
     gets a copy of every uint8 batch a step or an eval pass dequantizes:
-    a captured step's as its static input holds it after the copy in or
-    the gather, an eager pass's where it dequantizes. Returns what the
-    run measured."""
+    a captured program's as its static inputs hold it before the run
+    (copied in, or the resident split's rows at its static indices, which
+    its graph gathers), an eager dispatch's where it dequantizes. Returns
+    what the run measured."""
     import torch
     import gltvae_torch.train.steps as tsteps
-    from gltvae_torch.train.graphs import CapturedStep
+    from gltvae_torch.train import graphs
     from gltvae_torch.data.pipeline import BatchLoader
     from gltvae_torch.ops import preprocess
     from gltvae_torch.ops.gating import cooccurrence_gating_matrix
@@ -447,31 +472,25 @@ def train_and_test(label, model_cfg, train_cfg, splits, dev, run_name,
     trainer._unsup_step = synced(trainer._unsup_step, step_s)
     undo = []
     if record is not None:
-        inside = []         # a captured step's device part is running
+        inside = []         # a captured program is running
 
         def keep(x):
             if x.dtype == torch.uint8:
                 record.append(x.clone())
 
-        def device_part(f):
-            def run(self, state):
+        def program(f):
+            def run(self, owner):
+                for b in self.batches():    # what its next run reads
+                    keep(b)
                 inside.append(1)
                 try:
-                    return f(self, state)
+                    return f(self, owner)
                 finally:
                     inside.pop()
             return run
-
-        def filled(f):
-            def run(self, *a):
-                f(self, *a)
-                keep(self.x)
-            return run
         undo = [patched(tsteps, '_prep_image', lambda f: lambda x, size: (
                     None if inside else keep(x), f(x, size))[1]),
-                patched(CapturedStep, '_run', device_part),
-                patched(CapturedStep, 'load', filled),
-                patched(CapturedStep, 'gather', filled)]
+                patched(graphs.Captured, '__call__', program)]
     cuda = dev.type == 'cuda'
     try:
         sync(dev)
@@ -565,19 +584,30 @@ def device_launches(events, kernel=DEQUANT_KERNEL):
                and kernel in e.key)
 
 
+#: The augment kernel's name in a graph's node dump
+#: (gltvae_torch/csrc/augment.cu).
+AUGMENT_KERNEL = 'augment_kernel'
+
+
 def audit_graphs():
-    """From here on, each train step captured in this process keeps its
-    graph (``keep_graph``) and is audited at its capture: the graph's
-    kernel nodes (``CUDAGraph.debug_dump``) must hold the dequant kernel
-    as often as the capture counted (``CapturedStep.dequant_launches``),
-    the launches each replay adds to ``preprocess.launches``. A graph that
-    differs fails the phase that captured it. Returns the running tally
-    {'graphs': ..., 'dequant_nodes': ...}; the audit stays on."""
+    """From here on, each program captured in this process (a train step
+    or chunk, an eval or ELBO pass; ``train/graphs.py``) keeps its graph
+    (``keep_graph``) and is audited at its capture: the graph's kernel
+    nodes (``CUDAGraph.debug_dump``) must hold the dequant kernel and the
+    augment kernel as often as the capture counted
+    (``Captured.dequant_launches``, ``augment_launches``), the launches
+    each replay adds to ``preprocess.launches`` and ``augment_launches``.
+    A graph that differs fails the phase that captured it. Returns the
+    running tally {'graphs', 'dequant_nodes', 'augment_nodes', 'kinds':
+    {class name: graphs}, 'capture_s': {class name: seconds of warm-up
+    and capture}, 'dump_s': seconds of the audit's own dumps}; the audit
+    stays on."""
     import warnings
 
     import torch
     from gltvae_torch.train import graphs
-    tally = {'graphs': 0, 'dequant_nodes': 0}
+    tally = {'graphs': 0, 'dequant_nodes': 0, 'augment_nodes': 0,
+             'kinds': {}, 'capture_s': {}, 'dump_s': 0.0}
     dump = os.path.join(ROOT, 'build', 'graph_audit.dot')
     os.makedirs(os.path.dirname(dump), exist_ok=True)
 
@@ -590,33 +620,48 @@ def audit_graphs():
         return graph, out
 
     def audited(f):
-        def run(self, state):
-            f(self, state)
+        def run(self, owner):
+            t = time.perf_counter()
+            f(self, owner)
+            sync(self.device)
+            t1 = time.perf_counter()
             with warnings.catch_warnings():
                 warnings.simplefilter('ignore')
                 self.graph.debug_dump(dump)
             with open(dump) as fh:
-                nodes = fh.read().count(DEQUANT_KERNEL)
+                text = fh.read()
             os.remove(dump)
-            check(nodes == self.dequant_launches,
-                  f'a captured step\'s graph holds {nodes} dequant kernel '
-                  f'nodes; its capture counted {self.dequant_launches}')
+            nodes = (text.count(DEQUANT_KERNEL), text.count(AUGMENT_KERNEL))
+            kind = type(self).__name__
+            check(nodes == (self.dequant_launches, self.augment_launches),
+                  f'a captured {kind}\'s graph holds {nodes[0]} dequant '
+                  f'and {nodes[1]} augment kernel nodes; its capture '
+                  f'counted {self.dequant_launches} and '
+                  f'{self.augment_launches}')
             tally['graphs'] += 1
-            tally['dequant_nodes'] += nodes
+            tally['dequant_nodes'] += nodes[0]
+            tally['augment_nodes'] += nodes[1]
+            tally['kinds'][kind] = tally['kinds'].get(kind, 0) + 1
+            tally['capture_s'][kind] = (tally['capture_s'].get(kind, 0.0)
+                                        + t1 - t)
+            tally['dump_s'] += time.perf_counter() - t1
         return run
     patched(graphs, '_cuda_capture', lambda f: capture)
-    patched(graphs.CapturedStep, '_capture', audited)
+    patched(graphs.Captured, '_capture', audited)
     return tally
 
 
-def audit_line(tally):
-    """Phase 40's line for audit_graphs' tally (none audited fails)."""
+def audit_line(tally, n=41):
+    """Phase `n`'s line for audit_graphs' tally (none audited fails)."""
     check(tally['graphs'] > 0, 'no captured graph was audited')
-    phase(40, f'(e) every train step captured in this process audited at '
-              f'its capture: {tally["graphs"]} graphs holding '
-              f'{tally["dequant_nodes"]} dequant kernel nodes, each graph '
-              f'as many as its capture counted (the launches its replays '
-              f'add to the count)')
+    secs = {k: round(v, 3) for k, v in tally['capture_s'].items()}
+    phase(n, f'(f) every program captured in this process audited at its '
+             f'capture: {tally["graphs"]} graphs ({tally["kinds"]}) holding '
+             f'{tally["dequant_nodes"]} dequant and '
+             f'{tally["augment_nodes"]} augment kernel nodes, each graph '
+             f'as many as its capture counted (the launches its replays '
+             f'add to the counts); seconds of warm-up and capture by kind '
+             f'{secs}, of the audit\'s dumps {tally["dump_s"]:.3f}')
 
 
 def recorder(log):
@@ -844,9 +889,10 @@ def celeba_phases(dev, smi):
     # ------------------------------------------------------------- 19
     r19 = run_cli('chip_smoke_celeba_augment', '--augment-pad', '4',
                   '--steps-per-dispatch', '4')
+    # the padded batches the captured chunks crop in their graphs
     shapes = r19['shapes']
     check(r19['launches'] == (6, 4)
-          and shapes == [(4, BATCH, 64, 64, 3)] * 4,
+          and shapes == [(4, BATCH, 72, 72, 3)] * 4,
           f'augmented from files: dequant, augment launches '
           f'{r19["launches"]} of {shapes}, expected (6, 4) of 4 x {BATCH}')
     sizes = sorted(len(a[1]) for a, _ in r19['fetch'])
@@ -1395,11 +1441,14 @@ def host_phases(dev, smi, celeba):
     line = json.loads(lines[0])
     unset = [k for k, v in line.items() if v is None
              and not (dev.type == 'cpu' and k.startswith('peak_hbm'))]
+    # each roofline present and above 0 (a count made on a graph's replay
+    # reads 0: fault F3); on the CPU the rate rounds to 0 at 3 decimals
     unset += [f'{r}.{k}' for r in ('roofline', 'eval_roofline',
                                    'eval_roofline_resident')
               for k in ('step_gflops', 'achieved_tflops_per_sec')
-              if (line[r] or {}).get(k) is None]
-    check(not unset, f'bench: null values {unset}')
+              if not (dev.type == 'cpu' and k == 'achieved_tflops_per_sec')
+              and not ((line[r] or {}).get(k) or 0) > 0]
+    check(not unset, f'bench: null or zero values {unset}')
     check(out['bench'] > 0, 'the bench launched no dequant')
     print('bench: ' + lines[0], flush=True)
     phase(29, f'python -m gltvae_torch.bench {" ".join(argv)}: every key '
@@ -1696,8 +1745,10 @@ def dp_phases(dev, smi, ref5, model_cfg, train_cfg, splits, model_a,
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(dp_dir, f'rank{r}.pt'),
                         weights_only=False) for r in range(world)]
+    # eager, so that its crops can be kept (a captured step crops inside
+    # its graph)
     one = augmented_run('one-process augmented', model_a, train_a, splits_a,
-                        dev, 'chip_smoke_dp/aug')
+                        dev, 'chip_smoke_dp/aug', jit=False)
     mu = cooccurrence_gating_matrix(splits['sup'].labels)
     pair = one_steps(model_cfg, train_cfg, mu,
                      [(splits[k].images[:BATCH], splits[k].labels[:BATCH])
@@ -3270,36 +3321,83 @@ def graph_batches(image_size, y_dim, n, dev, seed=40):
                  np.float32)).to(dev)) for _ in range(n)]
 
 
-def eager_vs_captured(model_cfg, train_cfg, mu, batches, kinds, temps, dev):
+def train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev, how,
+              sizes=None):
     """The steps `kinds` (True: sup) on device `batches` at the gating
-    temperatures `temps`, from one initial state, eagerly
-    (``make_train_steps(jit=False)``) and captured (``jit=True``).
-    Returns whether every metric, param and Adam moment is bit-equal, the
-    worst gap of each measure with where it is ('metrics' rel; 'params',
-    'adam_m', 'adam_v' max abs over the leaf's largest value; 'adam_m_l2',
-    'adam_v_l2' rel L2 over all leaves) and each run's dequant launches."""
+    temperatures `temps` from a fresh initial state, run `how`:
+    'eager' (``make_train_steps(jit=False)``; a padded batch cropped first
+    by the augment kernel with the step's draws, the Trainer's eager
+    order), 'steps' (captured single steps), 'chunks' (captured chunks of
+    `sizes` steps over stacked shipped batches, ``mixed_chunk``) or
+    'resident' (the same over rows of two device-resident splits, the sup
+    and the unsup batches, ``make_resident_mixed_scan_train_step``).
+    Returns the final state, each step's metrics on the host and the
+    (dequant, augment) launches counted."""
     import torch
     from gltvae_torch.ops import preprocess
     from gltvae_torch.train.state import create_train_state, init_model
-    from gltvae_torch.train.steps import make_train_steps
-    runs = []
-    for jit in (False, True):
-        model = init_model(model_cfg, train_cfg, mu, dev)
-        state = create_train_state(model, train_cfg)
-        steps = make_train_steps(model, train_cfg, jit=jit)
-        sync(dev)
-        launches0 = preprocess.launches
-        mets = []
+    from gltvae_torch.train import steps as ts
+    model = init_model(model_cfg, train_cfg, mu, dev)
+    state = create_train_state(model, train_cfg)
+    crop = ts.train_crop(model, train_cfg)
+    sync(dev)
+    launches0 = preprocess.launches, preprocess.augment_launches
+    mets = []
+    if how in ('eager', 'steps'):
+        steps = ts.make_train_steps(model, train_cfg, jit=how == 'steps')
         for (x, y), sup, temp in zip(batches, kinds, temps):
-            _, m = steps[0 if sup else 1](state, x, y, temp)
-            mets.append(m)
-        sync(dev)
-        runs.append(dict(
-            state=state.state_dict(), launches=preprocess.launches - launches0,
-            metrics=[{k: v.detach().float().cpu() for k, v in m.items()}
-                     for m in mets]))
-        del model, state, steps, mets
-    eager, capt = runs
+            if how == 'eager' and crop is not None \
+                    and crop.takes(x.shape, x.dtype):
+                x = preprocess.fused_augment_given(
+                    x, *crop.draw(state.step, len(x), dev), crop.size)
+            mets.append(steps[0 if sup else 1](state, x, y, temp)[1])
+    else:
+        chunk = (ts.make_resident_mixed_scan_train_step if how == 'resident'
+                 else ts.make_mixed_scan_train_step)(model, train_cfg,
+                                                     jit=True)
+        B = len(batches[0][0])
+        split = {k: [b for b, s in zip(batches, kinds) if s == k]
+                 for k in (True, False)}
+        res = {k: (torch.cat([x for x, _ in v]), torch.cat([y for _, y in v]))
+               for k, v in split.items() if v}
+        rows = {True: 0, False: 0}
+        i = 0
+        for n in sizes:
+            mask, temp = kinds[i:i + n], temps[i]
+            check(temps[i:i + n] == [temp] * n,
+                  'a chunk takes one temperature')
+            if how == 'resident':
+                idxs = []
+                for m in mask:
+                    idxs.append(torch.arange(rows[m] * B, (rows[m] + 1) * B,
+                                             device=dev))
+                    rows[m] += 1
+                empty = (torch.empty(0, device=dev),) * 2
+                _, ms = chunk(state, *res.get(True, empty),
+                              *res.get(False, empty), torch.stack(idxs),
+                              mask, temp)
+            else:
+                part = batches[i:i + n]
+                _, ms = chunk(state, torch.stack([x for x, _ in part]),
+                              torch.stack([y for _, y in part]), mask, temp)
+            mets += [{k: v[j] for k, v in ms.items()} for j in range(n)]
+            i += n
+    sync(dev)
+    out = dict(state=state.state_dict(),
+               launches=(preprocess.launches - launches0[0],
+                         preprocess.augment_launches - launches0[1]),
+               metrics=[{k: v.detach().float().cpu() for k, v in m.items()}
+                        for m in mets])
+    del model, state, mets
+    return out
+
+
+def compare_legs(eager, capt):
+    """Whether two train legs' step, count, every metric, param and Adam
+    moment are bit-equal, with the worst gap of each measure and where it
+    is ('metrics' rel; 'params', 'adam_m', 'adam_v' max abs over the leaf's
+    largest value; 'adam_m_l2', 'adam_v_l2' rel L2 over all leaves)."""
+    import torch
     worst = {k: (0.0, '') for k in ('metrics', 'params', 'adam_m', 'adam_v',
                                     'adam_m_l2', 'adam_v_l2')}
 
@@ -3309,6 +3407,7 @@ def eager_vs_captured(model_cfg, train_cfg, mu, batches, kinds, temps, dev):
 
     equal = all(eager['state'][k] == capt['state'][k]
                 for k in ('step', 'adam_count'))
+    equal &= len(eager['metrics']) == len(capt['metrics'])
     for i, (a, b) in enumerate(zip(eager['metrics'], capt['metrics'])):
         for k in a:
             equal &= torch.equal(a[k], b[k])
@@ -3324,8 +3423,21 @@ def eager_vs_captured(model_cfg, train_cfg, mu, batches, kinds, temps, dev):
             a, b = (torch.cat([d[k].flatten() for k in want])
                     for d in (want, got))
             note(f'{key}_l2', float((b - a).norm() / a.norm()), key)
-    return dict(equal=bool(equal), worst=worst,
-                launches=(eager['launches'], capt['launches']))
+    return bool(equal), worst
+
+
+def eager_vs_captured(model_cfg, train_cfg, mu, batches, kinds, temps, dev):
+    """The steps `kinds` (True: sup) on device `batches` at the gating
+    temperatures `temps`, from one initial state, eagerly
+    (``make_train_steps(jit=False)``) and captured (``jit=True``).
+    Returns whether every metric, param and Adam moment is bit-equal, the
+    worst gap of each measure with where it is (``compare_legs``) and each
+    run's dequant launches."""
+    legs = [train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev,
+                      how) for how in ('eager', 'steps')]
+    equal, worst = compare_legs(*legs)
+    return dict(equal=equal, worst=worst,
+                launches=tuple(leg['launches'][0] for leg in legs))
 
 
 def hold_captured(label, res, tol):
@@ -3543,6 +3655,548 @@ def graphs_phase(dev, smi):
     return out
 
 
+#: Phase 41 (b)'s chunks: 16 steps of the sup 0.5 interleave cut into
+#: chunks of 4, 4, 4, 3 and 1 steps: the mask patterns (sup, unsup, sup,
+#: unsup), a short chunk (sup, unsup, sup) and a one-step chunk (unsup).
+CHUNK_SIZES = (4, 4, 4, 3, 1)
+#: Phase 41 (e): timed units a speed line (after 3 warm-up units, which
+#: capture), and the profiled units after them.
+DISPATCH_UNITS, DISPATCH_PROFILED = 10, 3
+#: Phase 41 (a)'s eval splits (valid, test) and (e)'s eval images.
+EVAL_SPLIT, SPEED_EVAL_IMAGES = 512, 2048
+
+
+def eval_splits(model_cfg, dev, rows=None, seed=41):
+    """Phase 41's eval splits from the seed: (valid, test), each `rows`
+    (EVAL_SPLIT) u8 images of the model's size and f32 labels on `dev`."""
+    import numpy as np
+    import torch
+    rows = EVAL_SPLIT if rows is None else rows
+    rng = np.random.RandomState(seed)
+    s, y = model_cfg.image_size, model_cfg.y_dim
+    return [(torch.from_numpy(rng.randint(0, 256, (rows, s, s, 3)).astype(
+                np.uint8)).to(dev),
+             torch.from_numpy((rng.rand(rows, y) > 0.5).astype(
+                 np.float32)).to(dev)) for _ in range(2)]
+
+
+def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
+    """Phase 41 (a): the eval and ELBO passes of one model over `splits`
+    [(images u8, labels f32) on `dev`, whole batches of BATCH rows],
+    eagerly (``jit=False``) and captured, each leg from a fresh eval
+    generator of the Trainer's seed: per split a resident eval and a
+    resident ELBO epoch (rows in a drawn order), then all the splits'
+    batches stacked in chunked eval and ELBO passes of up to `n` batches;
+    the whole sequence twice (the captured leg's first pass of each form
+    captures, the others replay). Returns whether every value and the
+    generator's final state are bit-equal, the largest gap, and each
+    leg's dequant launches beside the batches it passed; and whether
+    draws into static slices (``out=``) equal fresh draws."""
+    import torch
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.train import steps as ts
+    from gltvae_torch.train.state import init_model, step_seed
+    model = init_model(model_cfg, train_cfg, mu, dev)
+    temp = train_cfg.gating_temp_for(model_cfg) * 0.99
+    g = torch.Generator(device=dev).manual_seed(41)
+    orders = [torch.randperm(len(x), generator=g, device=dev).view(-1, BATCH)
+              for x, _ in splits]
+    xs = torch.cat([x for x, _ in splits]).view(
+        -1, BATCH, *splits[0][0].shape[1:])
+    ys = torch.cat([y for _, y in splits]).view(-1, BATCH,
+                                                splits[0][1].shape[1])
+    legs = {}
+    for jit in (False, True):
+        make = {name: getattr(ts, f'make_{name}')(model, train_cfg, jit=jit)
+                for name in ('resident_eval_step', 'resident_elbo_step',
+                             'scan_eval_step', 'scan_elbo_step')}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(step_seed(train_cfg.seed + 1, 0))
+        sync(dev)
+        launches0 = preprocess.launches
+        vals, batches = [], 0
+        for _ in range(2):
+            for (images, labels), idxs in zip(splits, orders):
+                vals.append(make['resident_eval_step'](
+                    model, images, labels, idxs, gen, temp))
+                vals.append(make['resident_elbo_step'](model, images, idxs,
+                                                       gen, temp))
+                batches += 2 * len(idxs)
+            for i in range(0, len(xs), n):
+                vals.append(make['scan_eval_step'](
+                    model, xs[i:i + n], ys[i:i + n], gen, temp))
+                vals.append(make['scan_elbo_step'](model, xs[i:i + n], gen,
+                                                   temp))
+                batches += 2 * len(xs[i:i + n])
+        sync(dev)
+        legs[jit] = dict(vals=[v.cpu() for v in vals], gen=gen.get_state(),
+                         launches=preprocess.launches - launches0,
+                         batches=batches)
+    eager, capt = legs[False], legs[True]
+    equal = torch.equal(eager['gen'], capt['gen']) and all(
+        torch.equal(a, b) for a, b in zip(eager['vals'], capt['vals']))
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(eager['vals'], capt['vals']))
+    # a draw straight into a slice of a static buffer equals a fresh one
+    draws_equal = True
+    for draw in (lambda gen, out=None: ts.draw_eval_noise(model, BATCH, gen,
+                                                          out=out),
+                 lambda gen, out=None: ts.draw_noise(model, BATCH, False, 0,
+                                                     gen, out=out)):
+        a, b = (torch.Generator(device=dev).manual_seed(5) for _ in 'ab')
+        fresh = draw(a)
+        bufs = {k: torch.empty((3,) + tuple(v.shape), dtype=v.dtype,
+                               device=dev) for k, v in fresh.items()}
+        into = draw(b, {k: v[1] for k, v in bufs.items()})
+        draws_equal &= all(torch.equal(fresh[k], into[k])
+                           and into[k].data_ptr() == bufs[k][1].data_ptr()
+                           for k in fresh)
+        draws_equal &= torch.equal(a.get_state(), b.get_state())
+    del model
+    return dict(equal=bool(equal), gap=gap, draws_equal=bool(draws_equal),
+                launches=(eager['launches'], capt['launches']),
+                batches=(eager['batches'], capt['batches']))
+
+
+def chunk_legs(model_cfg, train_cfg, mu, batches, kinds, temps, dev, sizes,
+               legs=('steps', 'chunks', 'resident')):
+    """Phase 41 (b) and (c): the steps `kinds` on `batches` eagerly and
+    run as each of `legs` (``train_leg``), each held to the eager leg
+    (``compare_legs``). Returns {leg: (equal, worst, launches)} with the
+    eager leg's launches under 'eager'."""
+    eager = train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev,
+                      'eager')
+    out = {'eager': (True, None, eager['launches'])}
+    for how in legs:
+        got = train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev,
+                        how, sizes)
+        out[how] = compare_legs(eager, got) + (got['launches'],)
+    return out
+
+
+def unit_speed(unit, images, dev, depth=None):
+    """`unit()` (one dispatch's work; returns a device tensor) timed:
+    `warmup` units, the median synchronized wall of `units` units, the
+    mean of `units` units back to back (one wait at the end: a unit's
+    host part then overlaps the device work of the unit before it, as in
+    a run), then `profiled` units under torch.profiler: device ms a unit
+    (kernel, copy and fill times), host launches a unit by runtime call,
+    the busy share, img/s at `images` a unit. `depth` is (warmup, units,
+    profiled), by default (3, DISPATCH_UNITS, DISPATCH_PROFILED)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cuda = dev.type == 'cuda'
+    warmup, units, profiled = depth or (3, DISPATCH_UNITS,
+                                        DISPATCH_PROFILED)
+    for _ in range(warmup):
+        out = unit()
+    walls = []
+    for _ in range(units):
+        sync(dev)
+        t = time.perf_counter()
+        out = unit()
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+    sync(dev)
+    t = time.perf_counter()
+    for _ in range(units):
+        out = unit()
+    sync(dev)
+    pipelined_ms = (time.perf_counter() - t) / units * 1e3
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    sync(dev)
+    with profile(activities=acts) as prof:
+        for _ in range(profiled):
+            out = unit()
+        sync(dev)
+    check(bool(torch.isfinite(out.float()).all()),
+          'dispatch speed: a value is not finite')
+    events = prof.key_averages()
+    device_ms = (sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                 / 1e3 / profiled) if cuda else float('nan')
+    launches = {e.key: e.count / profiled for e in events
+                if e.key in LAUNCH_APIS}
+    wall_ms = statistics.median(walls) * 1e3
+    return dict(units=units, profiled=profiled,
+                wall_ms=wall_ms, img_s=images / wall_ms * 1e3,
+                pipelined_ms=pipelined_ms,
+                pipelined_img_s=images / pipelined_ms * 1e3,
+                device_ms=device_ms, busy=device_ms / wall_ms,
+                launches=launches, launches_total=sum(launches.values()))
+
+
+#: Phase 41 (e)'s large resident eval pass: the bench twin's dispatch
+#: (``bench_eval_resident``: 384 batches of 256 rows, bf16, s2d) over a
+#: split of SPEED_EVAL_IMAGES rows, as one graph only (its capture time
+#: and memory; the eager pass, ~1.1 s and 45,699 launches, profiles for
+#: tens of seconds), timed shallower: 1 warm-up, 3 units, 1 profiled.
+BENCH_EVAL_BATCHES = 384
+BENCH_EVAL_DEPTH = (1, 3, 1)
+MODES = ('eager', 'replays', 'graph')
+
+
+def speed_cases(model_cfg, train_cfg, model_a, train_a, dev):
+    """Phase 41 (e)'s dispatches, each label -> (build, modes, depth),
+    where build(mode) makes its model and inputs and returns (unit,
+    images a unit, batch, dtype); the modes are 'eager' (``jit=False``),
+    'replays' (a captured dispatch a batch or a step: one replay each,
+    the augment eager before it) and 'graph' (one replay a dispatch);
+    depth is ``unit_speed``'s (None: the default)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gltvae_torch.config import dp_sweep
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.train import steps as ts
+    from gltvae_torch.train.state import create_train_state, init_model
+
+    def evals(form, mcfg=model_cfg, batches=None):
+        def build(mode):
+            images, labels = eval_splits(mcfg, dev, SPEED_EVAL_IMAGES)[0]
+            mu = cooccurrence_gating_matrix(labels.cpu().numpy())
+            model = init_model(mcfg, train_cfg, mu, dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            idxs = torch.arange(SPEED_EVAL_IMAGES, device=dev).view(-1,
+                                                                    BATCH)
+            if batches is not None:     # rows drawn from the split
+                idxs = torch.randint(0, SPEED_EVAL_IMAGES, (batches, BATCH),
+                                     generator=gen, device=dev)
+            xs = images.view(-1, BATCH, *images.shape[1:])
+            ys = labels.view(-1, BATCH, labels.shape[1])
+            if mode == 'replays':
+                ev = ts.make_eval_step(model, train_cfg, jit=True)
+                gather = form == 'resident'
+
+                def unit():
+                    return torch.stack([ev(
+                        model, images.index_select(0, i) if gather else x,
+                        labels.index_select(0, i) if gather else y, gen,
+                        0.5) for i, x, y in zip(idxs, xs, ys)])
+            elif form == 'resident':
+                ev = ts.make_resident_eval_step(model, train_cfg,
+                                                jit=mode == 'graph')
+                unit = lambda: ev(model, images, labels, idxs, gen, 0.5)
+            else:               # chunks of steps_per_dispatch 4
+                ev = ts.make_scan_eval_step(model, train_cfg,
+                                            jit=mode == 'graph')
+                unit = lambda: torch.cat([
+                    ev(model, xs[i:i + 4], ys[i:i + 4], gen, 0.5)
+                    for i in range(0, len(xs), 4)])
+            return unit, idxs.numel(), BATCH, mcfg.compute_dtype
+        return build
+
+    def chunk(mcfg, tcfg_, host, kinds):
+        def build(mode):
+            mu = cooccurrence_gating_matrix(host[0][1]).astype(np.float32)
+            model = init_model(mcfg, tcfg_, mu, dev)
+            state = create_train_state(model, tcfg_)
+            xs = torch.stack([torch.from_numpy(host[i % len(host)][0])
+                              for i in range(len(kinds))]).to(dev)
+            ys = torch.stack([torch.from_numpy(host[i % len(host)][1])
+                              for i in range(len(kinds))]).to(dev)
+            if mode == 'replays':
+                sup, unsup = ts.make_train_steps(model, tcfg_, jit=True)
+
+                def unit():
+                    return torch.stack([(sup if k else unsup)(
+                        state, x, y, 1.0)[1]['loss']
+                        for x, y, k in zip(xs, ys, kinds)])
+            else:
+                fn = ts.make_mixed_scan_train_step(model, tcfg_,
+                                                   jit=mode == 'graph')
+                unit = lambda: fn(state, xs, ys, kinds, 1.0)[1]['loss']
+            return (unit, len(kinds) * len(xs[0]), len(xs[0]),
+                    mcfg.compute_dtype)
+        return build
+
+    def augmented(mode):
+        pad = train_a.augment_pad
+        edge = model_a.image_size + 2 * pad
+        rng = np.random.RandomState(41)
+        x = torch.from_numpy(rng.randint(0, 256, (BATCH, edge, edge, 3))
+                             .astype(np.uint8)).to(dev)
+        y = torch.from_numpy((rng.rand(BATCH, model_a.y_dim) > 0.5)
+                             .astype(np.float32)).to(dev)
+        model = init_model(model_a, train_a,
+                           cooccurrence_gating_matrix(y.cpu().numpy()), dev)
+        state = create_train_state(model, train_a)
+        crop = ts.train_crop(model, train_a)
+        steps = ts.make_train_steps(model, train_a, jit=mode != 'eager')
+
+        def unit():
+            xb = x
+            if mode != 'graph':       # the augment eager, before the step
+                xb = preprocess.fused_augment_given(
+                    x, *crop.draw(state.step, BATCH, dev), crop.size)
+            return steps[state.step % 2](state, xb, y, 1.0)[1]['loss']
+        return unit, BATCH, BATCH, model_a.compute_dtype
+
+    name, sweep_model, sweep_train = dp_sweep()[0]
+    sweep_train = dataclasses.replace(sweep_train, batch_size=SWEEP_BATCH)
+    sweep_b, _ = sweep_inputs(SWEEP_BATCH, 0)
+    plain_b = [(x.cpu().numpy(), y.cpu().numpy())
+               for x, y in graph_batches(model_cfg.image_size,
+                                         model_cfg.y_dim, 2, dev)]
+    bench_eval = dataclasses.replace(model_cfg, compute_dtype='bfloat16',
+                                     input_s2d=True, output_s2d=True)
+    return {'eval_resident': (evals('resident'), MODES, None),
+            'eval_chunked': (evals('chunked'), MODES, None),
+            f'eval_resident_{BENCH_EVAL_BATCHES} (bench twin)': (
+                evals('resident', bench_eval, BENCH_EVAL_BATCHES),
+                ('graph',), BENCH_EVAL_DEPTH),
+            'chunk4_plain': (chunk(model_cfg, train_cfg, plain_b,
+                                   [True, False, True, False]), MODES,
+                             None),
+            f'chunk4_sweep ({name})': (chunk(sweep_model, sweep_train,
+                                             sweep_b,
+                                             [True, False, False, False]),
+                                       MODES, None),
+            'augmented_step': (augmented, MODES, None)}
+
+
+def dispatch_phase(dev, smi, audited=None):
+    """Phase 41: gltvae's compiled eval, ELBO and multi-step dispatches
+    as CUDA graphs against their eager counterparts. (a) eval and ELBO
+    passes, resident and chunked at n = 4, stochastic and deterministic,
+    phase 5's model and phase 13's 128 px model; (b) 16 steps of the
+    interleave as chunks (shipped, resident) against 16 eager steps and
+    16 captured single steps, both models; (c) phase 9's augmented steps,
+    per step and chunked at n = 4; (d) phase 5's Trainer at
+    steps_per_dispatch 4 and phase 9's augmented run with jit=True and
+    jit=False; (a)-(d) on cuDNN's deterministic algorithms; (e) speed
+    lines and the Trainer meters on the default algorithms. Returns the
+    launch counts of each part."""
+    import dataclasses
+
+    import torch
+    from gltvae_torch.config import celeba128, default_celeba64
+    from gltvae_torch.data.synthetic import synthetic_splits
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.train.loop import Trainer
+    out = {}
+    model_cfg, train_cfg = default_celeba64(sup=0.5, n_epochs=2,
+                                            batch_size=BATCH)
+    model_128, train_128 = celeba128(sup=0.5, n_epochs=2, batch_size=BATCH,
+                                     remat='dots')
+    model_128 = dataclasses.replace(model_128, compute_dtype='bfloat16',
+                                    input_s2d=True, output_s2d=True)
+    model_a, train_a = default_celeba64(sup=0.5, n_epochs=2,
+                                        batch_size=BATCH, augment_pad=4)
+    models = (('64', model_cfg, train_cfg, F32_TOL),
+              ('128', model_128, train_128, BF16_TOL))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (a) eval and ELBO
+        out['eval'] = {}
+        for key, mcfg, tcfg_, _ in models:
+            splits = eval_splits(mcfg, dev)
+            mu = cooccurrence_gating_matrix(splits[0][1].cpu().numpy())
+            for det in (False, True):
+                res = eval_legs(mcfg, dataclasses.replace(
+                    tcfg_, deterministic_eval=det), mu, splits, dev)
+                eager, capt = res['launches']
+                check(res['equal'], f'(a) {key} px deterministic={det}: '
+                      f'captured eval/ELBO values or the eval generator '
+                      f'differ from eager (max abs {res["gap"]:.3e})')
+                check(res['draws_equal'], f'(a) {key} px: draws into '
+                      f'static slices differ from fresh draws')
+                check(eager == capt == res['batches'][0],
+                      f'(a) {key} px: dequant launches {eager} eager, '
+                      f'{capt} captured, for {res["batches"][0]} batches')
+                out['eval'][f'{key}_{"det" if det else "stochastic"}'] = capt
+                phase(41, f'(a) {mcfg.image_size} px {mcfg.compute_dtype} '
+                          f'eval and ELBO, {"deterministic" if det else "stochastic"}: '
+                          f'resident epochs of {EVAL_SPLIT}-image valid and '
+                          f'test splits and chunked passes of 4 batches, '
+                          f'twice, captured bit-equal to eager (values and '
+                          f'the eval generator after); dequant launches '
+                          f'{capt} captured (n a replay) = {eager} eager; '
+                          f'draws into static slices equal fresh draws')
+            del splits
+
+        # (b) chunks
+        kinds = [i % 2 == 0 for i in range(GRAPH_STEPS)]
+        out['chunks'] = {}
+        for key, mcfg, tcfg_, tol in models:
+            batches = graph_batches(mcfg.image_size, mcfg.y_dim,
+                                    GRAPH_STEPS, dev)
+            mu = cooccurrence_gating_matrix(
+                torch.cat([y for _, y in batches]).cpu().numpy())
+            t0 = tcfg_.gating_temp_for(mcfg)
+            temps = [t0 * (0.99 if i >= GRAPH_STEPS // 2 else 1.0)
+                     for i in range(GRAPH_STEPS)]
+            res = chunk_legs(mcfg, tcfg_, mu, batches, kinds, temps, dev,
+                             CHUNK_SIZES)
+            verdicts = []
+            for how in ('steps', 'chunks', 'resident'):
+                equal, worst, launches = res[how]
+                check(launches == (GRAPH_STEPS, 0),
+                      f'(b) {key} px {how}: (dequant, augment) launches '
+                      f'{launches}, expected ({GRAPH_STEPS}, 0)')
+                verdicts.append(f'{how}: ' + hold_captured(
+                    f'(b) {key} px {how}', dict(equal=equal, worst=worst),
+                    tol))
+            out['chunks'][key] = res['chunks'][2][0]
+            phase(41, f'(b) {mcfg.image_size} px {mcfg.compute_dtype}, '
+                      f'{GRAPH_STEPS} steps of the sup 0.5 interleave in '
+                      f'chunks of {list(CHUNK_SIZES)} (3 mask patterns), '
+                      f'against {GRAPH_STEPS} eager steps: '
+                      f'{"; ".join(verdicts)}; dequant launches '
+                      f'{GRAPH_STEPS} in every leg')
+            del batches
+
+        # (c) augmented: phase 9's model and padded batches
+        pad_b = graph_batches(model_a.image_size + 2 * train_a.augment_pad,
+                              model_a.y_dim, 8, dev, seed=9)
+        mu = cooccurrence_gating_matrix(
+            torch.cat([y for _, y in pad_b]).cpu().numpy())
+        res = chunk_legs(model_a, train_a, mu, pad_b,
+                         [i % 2 == 0 for i in range(8)], [1.0] * 8, dev,
+                         (4, 4), legs=('steps', 'chunks'))
+        want = {'eager': (0, 8), 'steps': (0, 8), 'chunks': (0, 2)}
+        for how, (equal, worst, launches) in res.items():
+            check(launches == want[how], f'(c) {how}: (dequant, augment) '
+                  f'launches {launches}, expected {want[how]}')
+            if how != 'eager':
+                check(equal, f'(c) augmented {how}: captured != eager: '
+                      + hold_captured(f'(c) {how}', dict(
+                          equal=equal, worst=worst), {}))
+        out['augment'] = {k: v[2][1] for k, v in res.items()}
+        phase(41, f'(c) augmented (augment_pad {train_a.augment_pad}, '
+                  f'(256, 72, 72, 3) -> 64), 8 steps of the interleave: '
+                  f'captured per step and chunked at n = 4 bit-equal to '
+                  f'the eager augment + step (metrics, params, Adam m and '
+                  f'v); augment launches {out["augment"]} (one a replay, '
+                  f'inside the graph), no dequant')
+        del pad_b
+
+        # (d) the Trainer both ways
+        splits = synthetic_splits(n_train=8 * BATCH, n_valid=2 * BATCH,
+                                  n_test=2 * BATCH, sup_frac=0.5,
+                                  image_size=model_cfg.image_size,
+                                  y_dim=model_cfg.y_dim,
+                                  learnable_signal=True)
+        splits_a = synthetic_splits(n_train=8 * BATCH, n_valid=2 * BATCH,
+                                    n_test=2 * BATCH, sup_frac=0.5,
+                                    image_size=model_a.image_size,
+                                    y_dim=model_a.y_dim,
+                                    learnable_signal=True,
+                                    train_pad=train_a.augment_pad)
+        kinds_before = dict((audited or {}).get('kinds', {}))
+        runs = {jit: train_and_test(f'phase 41 (d) jit={jit}', model_cfg,
+                                    train_cfg, splits, dev,
+                                    f'chip_smoke_dispatch_{jit}',
+                                    steps_per_dispatch=4, jit=jit)
+                for jit in (False, True)}
+        chunk_graphs = ((audited or {}).get('kinds', {}).get(
+            'CapturedChunk', 0) - kinds_before.get('CapturedChunk', 0))
+        aug = {jit: augmented_run(f'phase 41 (d) augmented jit={jit}',
+                                  model_a, train_a, splits_a, dev,
+                                  f'chip_smoke_dispatch_aug_{jit}', jit=jit)
+               for jit in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    strip = lambda rows: [{k: v for k, v in r.items() if k != 'time'}
+                          for r in rows]
+    check(strip(runs[True]['rows']) == strip(runs[False]['rows'])
+          and runs[True]['test_acc'] == runs[False]['test_acc'],
+          '(d) Trainer at steps_per_dispatch 4: the captured run\'s '
+          'metrics.csv or test accuracy differs from the eager run\'s')
+    check(strip(aug[True]['rows']) == strip(aug[False]['rows'])
+          and aug[True]['test_acc'] == aug[False]['test_acc'],
+          '(d) augmented Trainer: the captured run\'s metrics.csv or test '
+          'accuracy differs from the eager run\'s')
+    check(aug[True]['launches'] == aug[False]['launches'] == (4, 6),
+          f'(d) augmented Trainer: (augment, dequant) launches '
+          f'{aug[True]["launches"]} captured, {aug[False]["launches"]} '
+          f'eager, expected (4, 6)')
+    flags = Trainer._schedule_flags(8, 2, 4)
+    sizes = Trainer._chunk_sizes(flags, 4, True)
+    at = [sum(sizes[:i]) for i in range(len(sizes))]
+    patterns = sorted({tuple(flags[a:a + n]) for a, n in zip(at, sizes)})
+    out['trainer'] = (runs[True]['launches'], runs[False]['launches'])
+    out['trainer_augment'] = (aug[True]['launches'], aug[False]['launches'])
+    phase(41, f'(d) phase 5\'s Trainer at steps_per_dispatch 4 (chunks '
+              f'{sizes} an epoch, mask patterns {patterns}; chunk graphs '
+              f'captured {chunk_graphs if audited else "not audited"}) and '
+              f'phase 9\'s augmented run, jit=True and jit=False: '
+              f'metrics.csv equal row for row ({len(runs[True]["rows"])} '
+              f'and {len(aug[True]["rows"])} rows), test accuracy '
+              f'{runs[True]["test_acc"]:.4f} and '
+              f'{aug[True]["test_acc"]:.4f} both ways; dequant launches '
+              f'{out["trainer"]}, (augment, dequant) '
+              f'{out["trainer_augment"]}')
+    del runs, aug
+
+    # (e) speed, on the default algorithms
+    out['speed'] = {}
+    cuda = dev.type == 'cuda'
+    for label, (build, modes, depth) in speed_cases(
+            model_cfg, train_cfg, model_a, train_a, dev).items():
+        for mode in modes:
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+            unit, images, batch, dtype = build(mode)
+            sync(dev)
+            t = time.perf_counter()
+            unit()              # the first call, which captures
+            sync(dev)
+            first_ms = (time.perf_counter() - t) * 1e3
+            s = unit_speed(unit, images, dev, depth)
+            peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2**20
+                    if cuda else 0.0)
+            del unit
+            rec = dict(phase=41, dispatch=label, mode=mode, batch=batch,
+                       dtype=dtype, images=images,
+                       first_call_ms=first_ms,
+                       wall_ms_median=s['wall_ms'], img_s=s['img_s'],
+                       pipelined_ms=s['pipelined_ms'],
+                       pipelined_img_s=s['pipelined_img_s'],
+                       device_ms=s['device_ms'], busy=s['busy'],
+                       host_launches=s['launches'],
+                       host_launches_total=s['launches_total'],
+                       units=s['units'], profiled_units=s['profiled'],
+                       peak_mib=peak,
+                       card=smi)
+            out['speed'][f'{label}_{mode}'] = rec
+            print('graphs_speed: ' + json.dumps(rec), flush=True)
+    meters = {}
+    for jit in (False, True):
+        r = train_and_test(f'phase 41 (e) meter jit={jit}', model_cfg,
+                           train_cfg, splits, dev,
+                           f'chip_smoke_dispatch_meter_{jit}', jit=jit)
+        meters[jit] = r['result']['images_per_sec']
+        rec = dict(phase=41, dispatch='trainer (phase 5, 2 epochs)',
+                   mode='captured' if jit else 'eager', batch=BATCH,
+                   trainer_meter_img_s=meters[jit], wall_s=r['wall'],
+                   step_ms_median=statistics.median(r['step_s'][1:]) * 1e3,
+                   card=smi)
+        out['speed'][f'trainer_{rec["mode"]}'] = rec
+        print('graphs_speed: ' + json.dumps(rec), flush=True)
+        del r
+    phase(41, f'(e) speed of the eval passes ({SPEED_EVAL_IMAGES} images, '
+              f'bs {BATCH}, resident and in chunks of 4; and the bench '
+              f'twin\'s resident pass of {BENCH_EVAL_BATCHES} batches, '
+              f'bf16), a chunk of 4 plain and of 4 sweep steps and an '
+              f'augmented step, eager, as per-batch or per-step replays and '
+              f'as one graph, each with its first call: the '
+              f'graphs_speed lines above (median of {DISPATCH_UNITS} '
+              f'synchronized dispatches, and the mean of {DISPATCH_UNITS} '
+              f'back to back; device ms and host launches from '
+              f'{DISPATCH_PROFILED} profiled; the bench twin\'s pass '
+              f'{BENCH_EVAL_DEPTH[1]} and {BENCH_EVAL_DEPTH[2]}); phase '
+              f'5\'s Trainer meter '
+              f'{meters[True]:.0f} img/s captured, {meters[False]:.0f} '
+              f'eager, default cuDNN')
+    return out
+
+
 def main(argv=None):
     import argparse
     argv = sys.argv[1:] if argv is None else argv
@@ -3551,7 +4205,7 @@ def main(argv=None):
         dp_cli_rank(argv[1], argv[2 + profiled:], profiled)
         return 0
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-40; see the module text).')
+                                'GPU (phases 1-41; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
                    help='phases 1-2, 37 and 39 only: the sweep in one '
                         'process and, with 2 or more cards, on min(cards, '
@@ -3563,8 +4217,9 @@ def main(argv=None):
                         'through the harness\'s port leg (13 runs of 12 '
                         'or 30 epochs on the 2,100-image parity corpus)')
     p.add_argument('--graphs-only', action='store_true',
-                   help='phases 1-2 and 40 only: the captured train steps '
-                        'against the eager ones, and their speed')
+                   help='phases 1-2, 40 and 41 only: the captured train '
+                        'steps, chunks, eval and ELBO passes and augmented '
+                        'steps against the eager ones, and their speed')
     p.add_argument('--h2h-out', default=None,
                    help='with --h2h-only: a folder to copy the results, the '
                         'report and the walls into')
@@ -3621,9 +4276,11 @@ def main(argv=None):
     if args.sweep_only or args.h2h_only or args.graphs_only:
         if args.graphs_only:
             graphs = graphs_phase(dev, smi)
+            dispatch = dispatch_phase(dev, smi, audited)
             audit_line(audited)
-            print(json.dumps({'graphs': graphs, 'graphs_audited': audited}),
-                  flush=True)
+            print(json.dumps({'graphs': graphs, 'dispatch': {
+                k: v for k, v in dispatch.items() if k != 'speed'},
+                'graphs_audited': audited}), flush=True)
         if args.sweep_only:
             sweep = sweep_phase(dev, smi)
             dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, True))
@@ -3914,7 +4571,8 @@ def main(argv=None):
     eval_a = 2 * loaders_a['valid'].epoch_batches \
         + loaders_a['test'].epoch_batches
     check(steps_a == 16, f'augmented: expected 16 train steps, ran {steps_a}')
-    check(aug_launches == 4 and aug_shapes == [(4, BATCH, S, S, 3)] * 4,
+    # the padded batches the captured chunks crop in their graphs
+    check(aug_launches == 4 and aug_shapes == [(4, BATCH, PS, PS, 3)] * 4,
           f'augmented: {aug_launches} augment launches of {aug_shapes}, '
           f'expected 4 of 4 x {BATCH} images')
     check(aug_path_dequant == eval_a == 6,
@@ -4126,6 +4784,9 @@ def main(argv=None):
 
     # ------------------------------------------------------------- 40
     graphs = graphs_phase(dev, smi)
+
+    # ------------------------------------------------------------- 41
+    dispatch = dispatch_phase(dev, smi, audited)
     audit_line(audited)
 
     # ------------------------------------------------------------- out
@@ -4198,6 +4859,12 @@ def main(argv=None):
         'launches_graphs': graphs['plain'],
         'launches_graphs_128': graphs['128'],
         'launches_graphs_trainer': graphs['trainer'],
+        # phase 41: the captured eval and ELBO passes of (a) (n a replay),
+        # the chunk graphs of (b), the Trainer at steps_per_dispatch 4
+        # captured and eager (d)
+        'launches_dispatch_eval': dispatch['eval'],
+        'launches_dispatch_chunks': dispatch['chunks'],
+        'launches_dispatch_trainer': dispatch['trainer'],
         'graphs_audited': audited,
     }, {
         'name': 'augment',
@@ -4218,6 +4885,10 @@ def main(argv=None):
         'launches_celeba_augment': celeba['celeba_augment'][1],
         # phase 31: each of two gloo ranks, 512 images a launch
         'launches_mesh_gloo_2_per_rank': dp['gloo_2_augment'][0],
+        # phase 41: (c) eager, per-step replays and chunk replays, and
+        # (d) the augmented Trainer captured and eager (augment, dequant)
+        'launches_dispatch_augment': dispatch['augment'],
+        'launches_dispatch_trainer_augment': dispatch['trainer_augment'],
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

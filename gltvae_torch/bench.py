@@ -22,7 +22,12 @@ The JSON line has bench.py's keys but ``prng``, plus ``device`` (the
 card's name). ``peak_hbm_mb`` is ``torch.cuda.max_memory_allocated`` over
 the train-step bench. ``roofline`` holds the FLOPs of one step counted by
 ``torch.utils.flop_counter.FlopCounterMode`` on one extra step outside the
-timed loop, and the rate they give at the timed step time; PyTorch has no
+timed loop, and the rate they give at the timed step time. That step is
+the eager counterpart of the timed one (its maker with ``jit=False``, on
+a copy of the state): a captured step replays a CUDA graph, which
+dispatches no aten op for the counter to see, as gltvae counts its
+compiled program's work without running it. The eval rooflines count the
+same way, on a copy of the eval generator. PyTorch has no
 counterpart of XLA's cost analysis of bytes accessed, so
 ``step_mbytes_accessed`` and ``achieved_hbm_gbytes_per_sec`` are null.
 """
@@ -30,6 +35,7 @@ counterpart of XLA's cost analysis of bytes accessed, so
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -97,7 +103,8 @@ def resident_eval_inputs(rng, batch_size: int, n_images: int,
 
 def count_flops(fn) -> float:
     """FLOPs of one call of fn, counted by FlopCounterMode (convolutions
-    and matrix products, forward and backward)."""
+    and matrix products, forward and backward). `fn` must run eagerly: a
+    CUDA graph's replay dispatches no op, and counts 0."""
     from torch.utils.flop_counter import FlopCounterMode
     with FlopCounterMode(display=False) as counter:
         fn()
@@ -125,6 +132,13 @@ def _model(cfg: ModelConfig, train_cfg: TrainConfig, mu, dev):
     return init_model(cfg, train_cfg, mu, dev)
 
 
+def _twin_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator standing where `gen` stands."""
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
 def bench_train_step(batch_size: int, steps: int, warmup: int,
                      compute_dtype: str, supervised: bool = True,
                      scan: int = 0, image_size: int = 64,
@@ -149,30 +163,36 @@ def bench_train_step(batch_size: int, steps: int, warmup: int,
     x, y = _to(dev, ins['x'], ins['y'])
     if scan > 1:
         xs, ys = _to(dev, ins['xs'], ins['ys'])
-        if semi_sup_period > 1:
+    per_call = scan if scan > 1 else 1
+
+    def make_step(model, jit):
+        """(state) -> (state, last loss): one timed call on `model`,
+        captured by default, eager with jit=False."""
+        if scan > 1 and semi_sup_period > 1:
             # the reference's interleave as one mixed chunk: step i
             # supervised iff i % period == 0
-            mixed = make_mixed_scan_train_step(model, train_cfg)
+            mixed = make_mixed_scan_train_step(model, train_cfg, jit=jit)
             mask = (np.arange(scan) % semi_sup_period == 0).tolist()
 
             def step(s):
                 s, ms = mixed(s, xs, ys, mask, 1.0)
                 return s, ms['loss'][-1]
-        else:
-            fn = make_scan_train_steps(model, train_cfg)[0 if supervised
-                                                         else 1]
+        elif scan > 1:
+            fn = make_scan_train_steps(model, train_cfg, jit=jit)[
+                0 if supervised else 1]
 
             def step(s):
                 s, ms = fn(s, xs, ys, 1.0)
                 return s, ms['loss'][-1]
-        per_call = scan
-    else:
-        fn = make_train_steps(model, train_cfg)[0 if supervised else 1]
+        else:
+            fn = make_train_steps(model, train_cfg, jit=jit)[
+                0 if supervised else 1]
 
-        def step(s):
-            s, m = fn(s, x, y, 1.0)
-            return s, m['loss']
-        per_call = 1
+            def step(s):
+                s, m = fn(s, x, y, 1.0)
+                return s, m['loss']
+        return step
+    step = make_step(model, None)
 
     for _ in range(warmup):
         state, loss = step(state)
@@ -182,7 +202,9 @@ def bench_train_step(batch_size: int, steps: int, warmup: int,
         state, loss = step(state)
     final_loss = float(loss)        # fence: depends on the last step
     dt = time.perf_counter() - t0
-    flops = count_flops(lambda: step(state)) / per_call
+    twin = copy.deepcopy(state)         # the timed state stays untouched
+    eager = make_step(twin.model, False)
+    flops = count_flops(lambda: eager(twin)) / per_call
     secs = dt / (steps * per_call)
     return batch_size / secs, final_loss, roofline(flops, secs)
 
@@ -203,6 +225,7 @@ def bench_eval(batch_size: int, iters: int = 20, scan: int = 64,
     xs, ys = _to(dev, ins['xs'], ins['ys'])
     gen = torch.Generator(device=dev).manual_seed(1)
     run = lambda: ev(model, xs, ys, gen, 0.3)
+    eager = make_scan_eval_step(model, tc, jit=False)
     total = run().sum() * 0.0 + run().sum()
     float(total)                    # fence
     t0 = time.perf_counter()
@@ -211,8 +234,10 @@ def bench_eval(batch_size: int, iters: int = 20, scan: int = 64,
         total = total + run().sum()
     float(total)                    # fence: depends on every iteration
     dt = time.perf_counter() - t0
+    twin = _twin_generator(gen)
+    flops = count_flops(lambda: eager(model, xs, ys, twin, 0.3))
     return (batch_size * scan * iters / dt,
-            roofline(count_flops(run) / scan, dt / (iters * scan)))
+            roofline(flops / scan, dt / (iters * scan)))
 
 
 def bench_eval_resident(batch_size: int = 256, n_images: int = 16384,
@@ -236,6 +261,7 @@ def bench_eval_resident(batch_size: int = 256, n_images: int = 16384,
                                ins['idxs'])
     gen = torch.Generator(device=dev).manual_seed(1)
     run = lambda: ev(model, images, labels, idxs, gen, 0.3)
+    eager = make_resident_eval_step(model, tc, jit=False)
     total = run().sum() * 0.0 + run().sum()
     float(total)                    # fence
     t0 = time.perf_counter()
@@ -245,8 +271,11 @@ def bench_eval_resident(batch_size: int = 256, n_images: int = 16384,
     float(total)                    # fence: depends on every dispatch
     dt = time.perf_counter() - t0
     nb = batches_per_dispatch
+    twin = _twin_generator(gen)
+    flops = count_flops(lambda: eager(model, images, labels, idxs, twin,
+                                      0.3))
     return (batch_size * nb * dispatches / dt,
-            roofline(count_flops(run) / nb, dt / (dispatches * nb)))
+            roofline(flops / nb, dt / (dispatches * nb)))
 
 
 def bench_trainer_eval(batch_size: int = 256, n_images: int = 16384,

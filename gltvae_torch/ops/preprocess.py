@@ -301,19 +301,24 @@ def fused_augment_stacked_given(u8: torch.Tensor, dy: torch.Tensor,
 
 
 def draw_crop_flip(generator: torch.Generator, B: int, H: int, W: int,
-                   S: int, flip: bool = True
+                   S: int, flip: bool = True,
+                   out: Optional[Tuple[torch.Tensor, ...]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dy, dx, fl), int32 [B] each on the generator's device: offsets
-    uniform in [0, H-S] and [0, W-S], fl a fair coin (0 without flip).
-    Every augment entry point draws here, so the stacked draw equals the
-    per-step draws."""
+    uniform in [0, H-S] and [0, W-S], fl a fair coin (0 without flip);
+    drawn into the int32 tensors `out` when given. Every augment entry
+    point draws here, so the stacked draw equals the per-step draws."""
     _check_crop(H, W, S)
-    kw = dict(generator=generator, device=generator.device,
-              dtype=torch.int32)
-    dy = torch.randint(0, H - S + 1, (B,), **kw)
-    dx = torch.randint(0, W - S + 1, (B,), **kw)
-    fl = (torch.randint(0, 2, (B,), **kw) if flip else
-          torch.zeros(B, dtype=torch.int32, device=generator.device))
+    if out is None:
+        out = tuple(torch.empty(B, dtype=torch.int32,
+                                device=generator.device) for _ in range(3))
+    dy, dx, fl = out
+    dy.random_(0, H - S + 1, generator=generator)
+    dx.random_(0, W - S + 1, generator=generator)
+    if flip:
+        fl.random_(0, 2, generator=generator)
+    else:
+        fl.zero_()
     return dy, dx, fl
 
 

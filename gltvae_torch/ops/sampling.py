@@ -21,10 +21,16 @@ def clip_passthrough(x, lo, hi):
 
 
 def sample_gumbel(shape, generator=None, eps=1e-20, dtype=torch.float32,
-                  device=None):
-    """g = -log(-log(U + ε) + ε), U ~ Uniform[0,1)."""
-    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
-    return -torch.log(-torch.log(u + eps) + eps)
+                  device=None, out=None):
+    """g = -log(-log(U + ε) + ε), U ~ Uniform[0,1): a new tensor, or drawn
+    and transformed in place in `out` (the same ops on the same values,
+    so the same bits)."""
+    if out is None:
+        u = torch.rand(shape, generator=generator, dtype=dtype,
+                       device=device)
+        return -torch.log(-torch.log(u + eps) + eps)
+    torch.rand(shape, generator=generator, out=out)
+    return out.add_(eps).log_().neg_().add_(eps).log_().neg_()
 
 
 def sample_normal(loc, scale, generator=None, eps=None):

@@ -1,49 +1,70 @@
-"""Captured train steps: the counterpart of gltvae's
-``jax.jit(step, donate_argnums=(0,))`` (gltvae/train/steps.py).
+"""Captured programs: the counterpart of gltvae's jitted dispatches
+(``jax.jit`` of the train steps, the eval and ELBO passes and the
+``lax.scan`` chunks of gltvae/train/steps.py).
 
-In gltvae a train step is one compiled XLA program and the train state is
-donated, so it is updated in place. Here a step is split in two:
+In gltvae every dispatch of the Trainer is one compiled XLA program, and
+the train state is donated, so it is updated in place. Here a dispatch is
+split in two:
 
-- the host part (train/steps.py): the step's noise, drawn eagerly from its
-  per-step generator; the Adam count and its ``alpha``; ``state.step``;
-- the device part: the input stage (the dequant kernel), the loss,
+- the host part (train/steps.py): the draws, made eagerly from their
+  generators straight into the program's static buffers (a train step's
+  noise from its per-step generator, its augment offsets from
+  ``step_seed(seed + 2, step)``, an eval pass's noise from the one eval
+  generator, batch by batch); the Adam count and its ``alpha``;
+  ``state.step``;
+- the device part: the input stage (the row gather of a resident split,
+  the augment or the dequant kernel), the forward pass, and for training
   ``torch.autograd.grad``, Keras Adam in place and the metrics. It reads
   nothing back to the host, so on a CUDA device it is captured once as a
-  CUDA graph and replayed every step.
+  CUDA graph and replayed at every dispatch.
 
-``CapturedStep`` holds one step kind at one input shape and dtype. It owns
-static inputs (x, y, the gating temperature, alpha and the noise), which
-each call fills before the replay, so every value that changes from step
-to step reaches the graph through memory and none is baked into it. The
-params and the Adam moments are the state's own tensors, updated in place
-by the graph, so whatever replaces them must write into them
-(``TrainState.load_state_dict`` and ``Trainer.load_params`` do). The
-metrics are cloned out after each replay: the next replay overwrites the
-graph's own outputs.
+``Captured`` is what every such program shares: static inputs, which the
+host part fills before each run, so every value that changes from run to
+run reaches the graph through memory and none is baked into it; a warm-up
+on a side stream before the capture (the lazy set-up of cuBLAS, cuDNN,
+the autograd engine and the kernels' builds happens there, not under
+capture); one graph memory pool per maker; outputs cloned after each
+replay (the next replay overwrites the graph's own); the check that a
+graph runs only the state or the model it was captured on; and the
+kernels' launch counts. Three kinds build on it:
 
-Before its capture a step warms up on a side stream (the lazy set-up of
-cuBLAS, cuDNN, the autograd engine and the kernels' builds happens there,
-not under capture) with the params, moments, step and count saved before
-and put back after, so the first real step starts where the eager step
-would. A capture or replay error raises: nothing falls back to the eager
-step. On the CPU there is nothing to capture, and the same static-buffer
-path runs eagerly.
+- ``CapturedStep``: one train step kind at one input shape and dtype;
+- ``CapturedChunk``: n train steps in order, one graph per sup/unsup
+  mask pattern (gltvae's ``lax.cond`` picks the step kind at run time,
+  which a CUDA graph cannot), over a shipped stacked batch or rows of
+  resident splits;
+- ``CapturedPass``: an eval or ELBO pass over n batches (per batch,
+  stacked, or gathered from a resident split: a resident eval epoch is
+  one replay). It reads the model's parameters in place and writes
+  nothing back.
 
-The dequant kernel's launch count (``ops.preprocess.launches``) follows
-the replays: a replay launches the kernel without calling its wrapper, so
-each replay adds the launches the capture recorded. The warm-up's
-launches are left out, as a launch made to compare a kernel with its
-plain version is: the state they produced is put back.
+A train graph updates the state's params and Adam moments in place, so
+whatever replaces them must write into them (``TrainState.
+load_state_dict`` and ``Trainer.load_params`` do); an eval graph reads the
+parameters at their addresses, and a resident graph the split's tensors,
+which it keeps alive. The warm-up of a train graph puts the params,
+moments, step and count back, so the first real run starts where the
+eager one would. A capture or replay error raises: nothing falls back to
+the eager path. On the CPU there is nothing to capture, and the same
+static-buffer path runs eagerly.
+
+The launch counts of the dequant and augment kernels
+(``ops.preprocess.launches``, ``augment_launches``) follow the replays: a
+replay launches the kernels without calling their wrappers, so each
+replay adds the launches the capture recorded. The warm-up's launches are
+left out, as a launch made to compare a kernel with its plain version is:
+what they produced is put back or dropped.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from gltvae_torch.ops import preprocess
-from gltvae_torch.train.state import TrainState, next_alpha
+from gltvae_torch.train.state import TrainState, next_alpha, step_seed
 
 #: Device-part runs before a capture.
 WARMUP_STEPS = 2
@@ -51,7 +72,7 @@ WARMUP_STEPS = 2
 
 def _cuda_capture(fn: Callable[[], Dict[str, torch.Tensor]], pool):
     """(graph, outputs): `fn` captured on the current CUDA device into a
-    memory pool shared with the other steps of its maker."""
+    memory pool shared with the other programs of its maker."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool):
         out = fn()
@@ -59,9 +80,15 @@ def _cuda_capture(fn: Callable[[], Dict[str, torch.Tensor]], pool):
 
 
 def graph_capture(device: torch.device) -> Optional[Callable]:
-    """How steps on `device` are captured: CUDA graphs on a CUDA device,
-    nothing (the static-buffer path run eagerly) on the CPU."""
+    """How programs on `device` are captured: CUDA graphs on a CUDA
+    device, nothing (the static-buffer path run eagerly) on the CPU."""
     return _cuda_capture if device.type == 'cuda' else None
+
+
+def graph_pool(device: torch.device):
+    """A graph memory pool for the programs of one maker (None on the
+    CPU)."""
+    return torch.cuda.graph_pool_handle() if device.type == 'cuda' else None
 
 
 def _state_tensors(state: TrainState):
@@ -69,37 +96,219 @@ def _state_tensors(state: TrainState):
             + list(state.adam_v.values()))
 
 
-class CapturedStep:
+@dataclasses.dataclass(frozen=True)
+class Crop:
+    """A train step's augment stage (``TrainConfig.augment_pad`` > 0): a
+    uint8 batch padded to size + 2·pad is cropped back to size x size at a
+    drawn offset, flipped by a drawn coin and scaled by 1/255 (the augment
+    kernel). The draws of global step s come from a generator seeded
+    ``step_seed(seed + 2, s)``, so they depend neither on the dispatch nor
+    on ``steps_per_dispatch``."""
+    size: int
+    pad: int
+    seed: int
+
+    def takes(self, shape: Sequence[int], dtype: torch.dtype) -> bool:
+        """Whether a batch of (shape, dtype) is a padded train batch."""
+        edge = self.size + 2 * self.pad
+        return dtype == torch.uint8 and tuple(shape[-3:-1]) == (edge, edge)
+
+    def draw(self, step: int, b: int, device: torch.device,
+             out: Optional[Tuple[torch.Tensor, ...]] = None):
+        """(dy, dx, fl), int32 [b] each, for global step `step` (written
+        into `out` when given)."""
+        g = torch.Generator(device=device)
+        g.manual_seed(step_seed(self.seed + 2, step))
+        edge = self.size + 2 * self.pad
+        return preprocess.draw_crop_flip(g, b, edge, edge, self.size,
+                                         out=out)
+
+
+def _clone(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.clone() for k, v in out.items()}
+
+
+class Captured:
+    """One device part at one key, with its static inputs (see the module
+    docstring). A subclass defines ``_run(owner)`` -> a dict of device
+    tensors, made from its static inputs, and ``writes`` (whether the run
+    updates the owner, a TrainState, in place).
+
+    `owner` is what the device part reads beside its static inputs: the
+    TrainState of a train program, the model of an eval pass. A graph
+    reads the tensors it was captured with, so a captured program runs
+    only its own owner, and another raises (``check``). Where nothing is
+    captured (the CPU) any owner runs."""
+
+    writes = False
+    #: what the owner is called in ``check``'s message
+    owner_kind = 'state'
+
+    def __init__(self, device: torch.device, pool=None):
+        self.device = torch.device(device)
+        self.pool = pool
+        self.capture = graph_capture(self.device)
+        self.graph = None
+        #: the owner the graph was captured on
+        self.owner = None
+        self.outputs: Optional[Dict[str, torch.Tensor]] = None
+        #: kernel launches one replay makes (counted at the capture)
+        self.dequant_launches = 0
+        self.augment_launches = 0
+
+    def buffer(self, shape, dtype) -> torch.Tensor:
+        """A static input of `shape` and `dtype` on the program's
+        device."""
+        return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+
+    def _run(self, owner) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def batches(self) -> List[torch.Tensor]:
+        """The uint8 batches the next run reads, as its static inputs hold
+        them (a resident program's rows gathered from its split by its
+        static indices, as its graph gathers them)."""
+        raise NotImplementedError
+
+    def check(self, owner) -> None:
+        """Raise unless `owner` is the one this program was captured on
+        (or nothing is captured yet)."""
+        if self.graph is not None and owner is not self.owner:
+            raise ValueError(
+                f'a captured program was called with another '
+                f'{self.owner_kind} than the one it was captured on: its '
+                f'graph reads that {self.owner_kind}\'s tensors; make the '
+                f'steps anew for each {self.owner_kind}')
+
+    @torch.no_grad()
+    def warm_up(self, owner) -> None:
+        """Run the device part WARMUP_STEPS times on the static inputs;
+        a train program then puts back the params, moments, step and count
+        it found."""
+        if not self.writes:
+            for _ in range(WARMUP_STEPS):
+                self._run(owner)
+            return
+        state = owner
+        step, count = state.step, state.adam_count
+        tensors = _state_tensors(state)
+        saved = [t.detach().clone() for t in tensors]
+        try:
+            with torch.enable_grad():
+                for _ in range(WARMUP_STEPS):
+                    self._run(state)
+        finally:
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+            state.step, state.adam_count = step, count
+
+    def _capture(self, owner) -> None:
+        counts = preprocess.launches, preprocess.augment_launches
+        if self.device.type == 'cuda':
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.warm_up(owner)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        else:
+            self.warm_up(owner)
+        warm = preprocess.launches, preprocess.augment_launches
+        grad = torch.enable_grad() if self.writes else torch.no_grad()
+
+        def run():
+            with grad:
+                return self._run(owner)
+        self.graph, self.outputs = self.capture(run, self.pool)
+        self.owner = owner
+        self.dequant_launches = preprocess.launches - warm[0]
+        self.augment_launches = preprocess.augment_launches - warm[1]
+        preprocess.launches, preprocess.augment_launches = counts
+
+    def __call__(self, owner) -> Dict[str, torch.Tensor]:
+        """One run on the static inputs: replayed where captured (captured
+        at the first call), else run eagerly. Returns the outputs as new
+        tensors. A captured program raises for another owner than its
+        own."""
+        self.check(owner)
+        if self.capture is None:
+            grad = torch.enable_grad() if self.writes else torch.no_grad()
+            with grad:
+                return _clone(self._run(owner))
+        if self.graph is None:
+            self._capture(owner)
+        self.graph.replay()
+        preprocess.launches += self.dequant_launches
+        preprocess.augment_launches += self.augment_launches
+        return _clone(self.outputs)
+
+
+class _Noise:
+    """Static noise buffers: a dict of tensors per slot (a step or a
+    batch), made at the first fill from the first draws."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.slots: List[Optional[Dict[str, torch.Tensor]]] = [None] * slots
+
+    def out(self, j: int) -> Optional[Dict[str, torch.Tensor]]:
+        """Slot j's buffers to draw into (None before its first fill)."""
+        return self.slots[j]
+
+    def fill(self, j: int, noise: Dict[str, torch.Tensor]) -> None:
+        """Copy draws into slot j (made at its first fill); draws made
+        into the slot's own buffers are left as they are."""
+        buf = self.slots[j]
+        if buf is None:
+            buf = self.slots[j] = {k: torch.empty(v.shape, dtype=v.dtype,
+                                                  device=self.device)
+                                   for k, v in noise.items()}
+        if noise.keys() != buf.keys():
+            raise ValueError(f'noise {sorted(noise)} for a step captured '
+                             f'with {sorted(buf)}')
+        for k, v in noise.items():
+            if v.shape != buf[k].shape:
+                raise ValueError(f'noise {k} of shape {tuple(v.shape)} for '
+                                 f'a step captured at '
+                                 f'{tuple(buf[k].shape)}')
+            if v is not buf[k]:
+                buf[k].copy_(v)
+
+
+class CapturedStep(Captured):
     """One train step kind at one input shape and dtype.
 
-    `device_part` is ``(state, x, y, gating_temp, alpha, noise) -> metrics``
-    (train/steps.py): it updates the state's params and moments in place
-    and returns 0-d device tensors. `x` and `y` are the static inputs'
-    (shape, dtype); `pool` is the CUDA graph memory pool the captures of
-    one maker share.
+    `device_part` is ``(state, x, y, gating_temp, alpha, noise) ->
+    metrics`` (train/steps.py): it updates the state's params and moments
+    in place and returns 0-d device tensors. `x` and `y` are the static
+    inputs' (shape, dtype); with `crop` (a padded uint8 batch) the device
+    part first crops x through the augment kernel from the static offsets
+    ``crop_draws``. `pool` is the CUDA graph memory pool the captures of
+    one maker share."""
 
-    A graph reads and writes the tensors it was captured with, so a
-    captured step runs only the state it was captured on: another state
-    raises (``check``). Where nothing is captured (the CPU) any state
-    runs."""
+    writes = True
 
     def __init__(self, device_part: Callable, x: tuple, y: tuple,
-                 device: torch.device, pool=None):
-        dev = torch.device(device)
+                 device: torch.device, pool=None,
+                 crop: Optional[Crop] = None):
+        super().__init__(device, pool)
         self.device_part = device_part
-        self.x = torch.empty(x[0], dtype=x[1], device=dev)
-        self.y = torch.empty(y[0], dtype=y[1], device=dev)
-        self.temp = torch.zeros((), dtype=torch.float32, device=dev)
-        self.alpha = torch.zeros((), dtype=torch.float32, device=dev)
-        self.noise: Optional[Dict[str, torch.Tensor]] = None
-        self.pool = pool
-        self.capture = graph_capture(dev)
-        self.graph = None
-        #: the state the graph was captured on
-        self.state: Optional[TrainState] = None
-        self.metrics: Optional[Dict[str, torch.Tensor]] = None
-        #: dequant launches one replay makes (counted at the capture)
-        self.dequant_launches = 0
+        self.x = self.buffer(*x)
+        self.y = self.buffer(*y)
+        self.temp = self.buffer((), torch.float32).zero_()
+        self.alpha = self.buffer((), torch.float32).zero_()
+        self._noise = _Noise(self.device, 1)
+        self.crop = crop
+        b = x[0][0]
+        self.crop_draws = (tuple(self.buffer((b,), torch.int32)
+                                 for _ in range(3)) if crop else None)
+
+    @property
+    def noise(self) -> Optional[Dict[str, torch.Tensor]]:
+        return self._noise.out(0)
+
+    @property
+    def metrics(self) -> Optional[Dict[str, torch.Tensor]]:
+        return self.outputs
 
     # ----------------------------- inputs -----------------------------
     def load(self, x: torch.Tensor, y: torch.Tensor) -> None:
@@ -117,81 +326,19 @@ class CapturedStep:
     def set_noise(self, noise: Dict[str, torch.Tensor]) -> None:
         """Copy the step's draws into the static noise buffers (made at the
         first call, from the first draws)."""
-        if self.noise is None:
-            self.noise = {k: torch.empty(v.shape, dtype=v.dtype,
-                                         device=self.x.device)
-                          for k, v in noise.items()}
-        if noise.keys() != self.noise.keys():
-            raise ValueError(f'noise {sorted(noise)} for a step captured '
-                             f'with {sorted(self.noise)}')
-        for k, v in noise.items():
-            if v.shape != self.noise[k].shape:
-                raise ValueError(f'noise {k} of shape {tuple(v.shape)} for a '
-                                 f'step captured at '
-                                 f'{tuple(self.noise[k].shape)}')
-            self.noise[k].copy_(v)
+        self._noise.fill(0, noise)
+
+    def batches(self) -> List[torch.Tensor]:
+        return [self.x] if self.x.dtype == torch.uint8 else []
 
     # ------------------------------ runs ------------------------------
     def _run(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        return self.device_part(state, self.x, self.y, self.temp, self.alpha,
+        x = self.x
+        if self.crop is not None:
+            x = preprocess.fused_augment_given(x, *self.crop_draws,
+                                               self.crop.size)
+        return self.device_part(state, x, self.y, self.temp, self.alpha,
                                 self.noise)
-
-    def check(self, state: TrainState) -> None:
-        """Raise unless `state` is the state this step was captured on
-        (or nothing is captured yet)."""
-        if self.graph is not None and state is not self.state:
-            raise ValueError(
-                'a captured step was called with another state than the '
-                'one it was captured on: its graph updates that state\'s '
-                'tensors; make the steps anew for each state')
-
-    @torch.no_grad()
-    def warm_up(self, state: TrainState) -> None:
-        """Run the device part WARMUP_STEPS times on the static inputs,
-        then put back the params, moments, step and count it found."""
-        step, count = state.step, state.adam_count
-        tensors = _state_tensors(state)
-        saved = [t.detach().clone() for t in tensors]
-        try:
-            with torch.enable_grad():
-                for _ in range(WARMUP_STEPS):
-                    self._run(state)
-        finally:
-            for t, s in zip(tensors, saved):
-                t.copy_(s)
-            state.step, state.adam_count = step, count
-
-    def _capture(self, state: TrainState) -> None:
-        launches = preprocess.launches
-        if self.x.device.type == 'cuda':
-            side = torch.cuda.Stream(self.x.device)
-            side.wait_stream(torch.cuda.current_stream(self.x.device))
-            with torch.cuda.stream(side):
-                self.warm_up(state)
-            torch.cuda.current_stream(self.x.device).wait_stream(side)
-        else:
-            self.warm_up(state)
-        warm = preprocess.launches
-        self.graph, self.metrics = self.capture(lambda: self._run(state),
-                                                self.pool)
-        self.state = state
-        self.dequant_launches = preprocess.launches - warm
-        preprocess.launches = launches
-
-    def __call__(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """One step on the static inputs: replayed where captured (captured
-        at the first call), else run eagerly. Returns the metrics as new
-        tensors. A captured step raises for another state than its own."""
-        self.check(state)
-        if self.capture is None:
-            metrics = self._run(state)
-        else:
-            if self.graph is None:
-                self._capture(state)
-            self.graph.replay()
-            preprocess.launches += self.dequant_launches
-            metrics = self.metrics
-        return {k: v.clone() for k, v in metrics.items()}
 
 
 class JitStep:
@@ -200,21 +347,26 @@ class JitStep:
     by a ``CapturedStep`` for each (x, y) shape and dtype. ``gathered``
     takes the batch as rows of a device-resident split instead.
 
-    `host` is the host part, ``(state, batch, noise) -> noise``: the step's
-    draws (`noise` when given). `lr` is the Adam learning rate, `device`
-    the model's, where the static inputs live.
+    `host` is the host part, ``(state, b, noise, out=None) -> noise``: the
+    step's draws at ``state.step`` (`noise` when given), drawn into `out`
+    (a slot of static buffers) when given.
+    `lr` is the Adam learning rate, `device` the model's, where the static
+    inputs live; `crop` the augment stage of padded batches (None without
+    augmentation).
 
     Unlike gltvae's jitted step, which is pure, a captured step is bound
     to the state it was captured on, and another state raises
-    (``CapturedStep.check``) before anything of it is touched."""
+    (``Captured.check``) before anything of it is touched."""
 
     def __init__(self, device_part: Callable, host: Callable, lr: float,
-                 device: torch.device, pool=None):
+                 device: torch.device, pool=None,
+                 crop: Optional[Crop] = None):
         self.device_part = device_part
         self.host = host
         self.lr = lr
         self.device = device
         self.pool = pool
+        self.crop = crop
         self.steps: Dict[tuple, CapturedStep] = {}
 
     def captured(self, x: tuple, y: tuple) -> CapturedStep:
@@ -222,14 +374,19 @@ class JitStep:
         first use)."""
         step = self.steps.get((x, y))
         if step is None:
+            crop = (self.crop if self.crop is not None
+                    and self.crop.takes(*x) else None)
             step = self.steps[(x, y)] = CapturedStep(
-                self.device_part, x, y, self.device, self.pool)
+                self.device_part, x, y, self.device, self.pool, crop)
         return step
 
     def _run(self, step: CapturedStep, state: TrainState, gating_temp,
              noise):
         step.check(state)       # before the host part touches the state
-        step.set_noise(self.host(state, step.x.shape[0], noise))
+        b = step.x.shape[0]
+        step.set_noise(self.host(state, b, noise, out=step.noise))
+        if step.crop is not None:
+            step.crop.draw(state.step, b, self.device, out=step.crop_draws)
         step.temp.fill_(gating_temp)
         next_alpha(state, self.lr, out=step.alpha)
         metrics = step(state)
@@ -251,3 +408,275 @@ class JitStep:
                              ((n,) + tuple(labels.shape[1:]), labels.dtype))
         step.gather(images, labels, idx)
         return self._run(step, state, gating_temp, None)
+
+
+class CapturedChunk(Captured):
+    """n train steps in one program: step j runs the sup device part where
+    ``mask[j]``, else the unsup one, in order, each with its own static
+    noise and ``alpha[j]`` and the one static temperature. Its batches are
+    a shipped stacked batch (static ``xs`` [n, B, ...], ``ys``; a padded
+    one cropped by one augment launch over n·B images) or rows of
+    resident splits, ``sources[j]`` = (images, labels) of step j,
+    gathered inside the graph from the static ``idxs`` [n, B].
+
+    The metrics come out stacked [n]. Autograd frees step j's activations
+    before step j + 1 runs, so the graph's pool reuses them."""
+
+    writes = True
+
+    def __init__(self, parts: Dict[bool, Callable], mask: Tuple[bool, ...],
+                 x: tuple, y: tuple, device: torch.device, pool=None,
+                 crop: Optional[Crop] = None, sources=None):
+        super().__init__(device, pool)
+        self.parts = parts
+        self.mask = mask
+        n = len(mask)
+        self.sources = sources
+        if sources is None:
+            self.xs, self.ys = self.buffer(*x), self.buffer(*y)
+            self.idxs = None
+        else:
+            self.xs = self.ys = None
+            self.idxs = self.buffer(*x)
+        self.batch = b = x[0][1]
+        self.temp = self.buffer((), torch.float32).zero_()
+        self.alpha = self.buffer((n,), torch.float32).zero_()
+        self.noise = _Noise(self.device, n)
+        self.crop = crop
+        self.crop_draws = (tuple(self.buffer((n, b), torch.int32)
+                                 for _ in range(3)) if crop else None)
+
+    def load(self, xs: torch.Tensor, ys: torch.Tensor) -> None:
+        """Copy a stacked batch into the static inputs."""
+        self.xs.copy_(xs)
+        self.ys.copy_(ys)
+
+    def set_rows(self, idxs: torch.Tensor) -> None:
+        """Copy the chunk's [n, B] row indices into the static input."""
+        self.idxs.copy_(idxs)
+
+    def batches(self) -> List[torch.Tensor]:
+        if self.sources is not None:
+            return [images.index_select(0, i)
+                    for (images, _), i in zip(self.sources, self.idxs)]
+        return list(self.xs) if self.xs.dtype == torch.uint8 else []
+
+    def _run(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        xs = self.xs
+        if self.crop is not None:
+            xs = preprocess.fused_augment_stacked_given(
+                xs, *self.crop_draws, self.crop.size)
+        mets = []
+        for j, m in enumerate(self.mask):
+            if self.sources is None:
+                x, y = xs[j], self.ys[j]
+            else:
+                images, labels = self.sources[j]
+                x = torch.index_select(images, 0, self.idxs[j])
+                y = torch.index_select(labels, 0, self.idxs[j])
+            mets.append(self.parts[m](state, x, y, self.temp, self.alpha[j],
+                                      self.noise.out(j)))
+        return {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+
+
+class JitChunk:
+    """The chunk of ``make_mixed_scan_train_step(jit=True)`` and the
+    resident chunk makers: n steps of the JitSteps `sup` and `unsup` as
+    one ``CapturedChunk`` replay, one graph per mask pattern, input shapes
+    and dtypes, and source (shipped, or the resident splits by identity),
+    sharing the steps' graph pool.
+
+    Its host part does, in step order, what n single steps would: draw
+    step j's noise from ``state.next_generator()`` (and its augment
+    offsets) at ``state.step``, advance the Adam count into ``alpha[j]``,
+    advance ``state.step``; then it replays once. The result equals n
+    single steps bit for bit."""
+
+    def __init__(self, sup: JitStep, unsup: JitStep):
+        self.kinds = {True: sup, False: unsup}
+        self.lr, self.device, self.pool = sup.lr, sup.device, sup.pool
+        self.crop = sup.crop
+        self.chunks: Dict[tuple, CapturedChunk] = {}
+
+    def captured(self, mask: Tuple[bool, ...], x: tuple, y: tuple,
+                 sources=None) -> CapturedChunk:
+        """The CapturedChunk of one mask pattern, input (shape, dtype)
+        pair and source (made on first use)."""
+        src = (None if sources is None else
+               tuple((id(a), id(b)) for a, b in sources))
+        key = (mask, x, y, src)
+        chunk = self.chunks.get(key)
+        if chunk is None:
+            crop = (self.crop if self.crop is not None and sources is None
+                    and self.crop.takes(*x) else None)
+            chunk = self.chunks[key] = CapturedChunk(
+                {k: s.device_part for k, s in self.kinds.items()}, mask, x,
+                y, self.device, self.pool, crop, sources)
+        return chunk
+
+    def _run(self, chunk: CapturedChunk, state: TrainState, gating_temp):
+        chunk.check(state)      # before the host part touches the state
+        b, step0 = chunk.batch, state.step
+        try:
+            for j, m in enumerate(chunk.mask):
+                state.step = step0 + j      # the step's own draws
+                chunk.noise.fill(j, self.kinds[m].host(
+                    state, b, None, out=chunk.noise.out(j)))
+                if chunk.crop is not None:
+                    chunk.crop.draw(step0 + j, b, self.device, out=tuple(
+                        d[j] for d in chunk.crop_draws))
+                next_alpha(state, self.lr, out=chunk.alpha[j])
+        finally:
+            state.step = step0
+        chunk.temp.fill_(gating_temp)
+        metrics = chunk(state)
+        state.step = step0 + len(chunk.mask)
+        return state, metrics
+
+    def __call__(self, state: TrainState, xs, ys, sup_mask, gating_temp):
+        """(state, xs [n, B, ...], ys [n, B, y], sup_mask [n],
+        gating_temp) -> (state, metrics [n])."""
+        mask = tuple(bool(m) for m in sup_mask)
+        if not len(xs) == len(ys) == len(mask):
+            raise ValueError(f'chunk of {len(xs)} batches, {len(ys)} label '
+                             f'batches and {len(mask)} flags')
+        chunk = self.captured(mask, (tuple(xs.shape), xs.dtype),
+                              (tuple(ys.shape), ys.dtype))
+        chunk.load(xs, ys)
+        return self._run(chunk, state, gating_temp)
+
+    def gathered(self, state: TrainState, sources, idxs, sup_mask,
+                 gating_temp):
+        """The chunk on rows idxs[j] of sources[j] (images, labels), the
+        resident split(s) of each step, gathered inside the graph."""
+        mask = tuple(bool(m) for m in sup_mask)
+        if len(idxs) != len(mask):
+            raise ValueError(f'{len(idxs)} index rows and {len(mask)} '
+                             'flags')
+        chunk = self.captured(mask, (tuple(idxs.shape), idxs.dtype),
+                              None, tuple(sources))
+        chunk.set_rows(idxs)
+        return self._run(chunk, state, gating_temp)
+
+
+class CapturedPass(Captured):
+    """An eval or ELBO pass of n batches in one program: ``fn(model, x, y,
+    noise_j)`` -> a 0-d value for batch j, stacked to [n] (``value``).
+    Batch j is ``xs[j]`` (with ``ys[j]``) of a static stacked batch, or
+    rows ``idxs[j]`` of a resident split ``source`` = (images, labels or
+    None), gathered inside the graph. The noise of batch j is slot j of
+    ``noise`` (None for a deterministic pass); the temperature is static.
+    The model's parameters are read in place; nothing is written back."""
+
+    owner_kind = 'model'
+
+    def __init__(self, fn: Callable, n: int, x: tuple, y: Optional[tuple],
+                 device: torch.device, pool=None, source=None,
+                 stochastic: bool = True):
+        super().__init__(device, pool)
+        self.fn = fn
+        self.n = n
+        self.source = source
+        if source is None:
+            self.xs = self.buffer(*x)
+            self.ys = None if y is None else self.buffer(*y)
+            self.idxs = None
+        else:
+            self.xs = self.ys = None
+            self.idxs = self.buffer(*x)
+        self.batch = x[0][1]
+        self.temp = self.buffer((), torch.float32).zero_()
+        self.noise = _Noise(self.device, n) if stochastic else None
+
+    def load(self, xs: torch.Tensor, ys: Optional[torch.Tensor]) -> None:
+        """Copy stacked batches into the static inputs."""
+        self.xs.copy_(xs)
+        if self.ys is not None:
+            self.ys.copy_(ys)
+
+    def set_rows(self, idxs: torch.Tensor) -> None:
+        """Copy the pass's [n, B] row indices into the static input."""
+        self.idxs.copy_(idxs)
+
+    def batches(self) -> List[torch.Tensor]:
+        if self.source is not None:
+            return [self.source[0].index_select(0, i) for i in self.idxs]
+        return list(self.xs) if self.xs.dtype == torch.uint8 else []
+
+    def _run(self, model) -> Dict[str, torch.Tensor]:
+        vals = []
+        for j in range(self.n):
+            if self.source is None:
+                x = self.xs[j]
+                y = None if self.ys is None else self.ys[j]
+            else:
+                images, labels = self.source
+                x = torch.index_select(images, 0, self.idxs[j])
+                y = (None if labels is None
+                     else torch.index_select(labels, 0, self.idxs[j]))
+            noise = None if self.noise is None else self.noise.out(j)
+            vals.append(self.fn(model, x, y, self.temp, noise))
+        return {'value': torch.stack(vals)}
+
+
+class JitPass:
+    """An eval or ELBO maker with ``jit``: its passes run as
+    ``CapturedPass`` replays, one graph per form ('batch', 'stacked',
+    'resident'), n, batch shape and dtype, and resident split (by
+    identity), sharing one graph pool.
+
+    `fn` is the device part of one batch, ``(model, x, y, temp, noise) ->
+    0-d``; `draw` the host part of one batch, ``(model, b, generator,
+    out) -> noise`` (None for a deterministic pass, which draws nothing).
+    The host part draws the n batches' noise from the one eval generator,
+    batch by batch, straight into the static buffers: the generator ends
+    where the eager pass leaves it, and the draws equal its draws."""
+
+    def __init__(self, model, fn: Callable, draw: Optional[Callable]):
+        self.model = model
+        self.fn = fn
+        self.draw = draw
+        self.device = model.mu.device
+        self.pool = graph_pool(self.device)
+        self.passes: Dict[tuple, CapturedPass] = {}
+
+    def captured(self, form: str, n: int, x: tuple, y: Optional[tuple],
+                 source=None) -> CapturedPass:
+        src = None if source is None else tuple(
+            None if t is None else id(t) for t in source)
+        key = (form, n, x, y, src)
+        p = self.passes.get(key)
+        if p is None:
+            p = self.passes[key] = CapturedPass(
+                self.fn, n, x, y, self.device, self.pool, source,
+                stochastic=self.draw is not None)
+        return p
+
+    def run(self, p: CapturedPass, model, generator, gating_temp):
+        """The host part and one run of `p`: values [n] as new tensors."""
+        p.check(model)          # before the generator is touched
+        if self.draw is not None:
+            for j in range(p.n):
+                p.noise.fill(j, self.draw(model, p.batch, generator,
+                                          p.noise.out(j)))
+        p.temp.fill_(gating_temp)
+        return p(model)['value']
+
+    def stacked(self, model, xs, ys, generator, gating_temp,
+                form: str = 'stacked'):
+        """Values [n] over stacked batches xs [n, B, ...] (ys [n, B, y]
+        or None)."""
+        p = self.captured(form, len(xs), (tuple(xs.shape), xs.dtype),
+                          None if ys is None else (tuple(ys.shape),
+                                                   ys.dtype))
+        p.load(xs, ys)
+        return self.run(p, model, generator, gating_temp)
+
+    def resident(self, model, images, labels, idxs, generator, gating_temp):
+        """Values [n] over rows idxs [n, B] of a resident split (labels
+        None for an ELBO pass), gathered inside the graph."""
+        p = self.captured('resident', len(idxs),
+                          (tuple(idxs.shape), idxs.dtype), None,
+                          (images, labels))
+        p.set_rows(idxs)
+        return self.run(p, model, generator, gating_temp)

@@ -30,9 +30,11 @@ dispatches bit for bit.
 
 With ``TrainConfig.augment_pad`` P > 0 the train batches arrive padded to
 S+2P and the augment kernel crops each back to S x S (random offset,
-random horizontal flip, x * 1/255) on the device, one launch per dispatch.
-The draw for global step s comes from a generator seeded by
-``step_seed(seed + 2, s)``, so the crops do not depend on
+random horizontal flip, x * 1/255) on the device, one launch per dispatch:
+inside the captured step's or chunk's graph, its offsets drawn by the
+host part into static buffers, or, eagerly, before the step. The draw for
+global step s comes from a generator seeded by ``step_seed(seed + 2,
+s)`` (``graphs.Crop``), so the crops do not depend on
 ``steps_per_dispatch``. Eval batches are never augmented.
 
 **A mesh** (``mesh=``, a ``parallel.mesh.Mesh``; the JAX Trainer's
@@ -50,21 +52,24 @@ Rank 0 alone writes metrics.csv, events, μ exports and checkpoints, and
 the others wait at a barrier after each save; every rank restores the same
 checkpoint on resume; the throughput meter counts global images.
 
-**Captured steps** (``jit``, by default on one device; gltvae's jitted
-steps): on one device every train step is a CUDA graph, captured at its
-first call for each step kind and input shape and replayed from then on
-(``train/graphs.py``); a chunk of n steps is n replays. The Trainer passes
-the gating temperature at every step, so the per-epoch decay reaches the
-graph's static temperature; a resume restores the state into its own
-tensors. ``jit=False`` runs the plain eager steps, for comparison. On a
-mesh the steps are eager by default (they are not captured yet), and
-``jit=True`` there raises. Eval and ELBO passes stay eager.
+**Captured dispatches** (``jit``, by default on one device; gltvae's
+jitted dispatches): on one device every dispatch is a CUDA graph,
+captured at its first call for each kind, mask pattern and input shape
+and replayed from then on (``train/graphs.py``): a train step, a chunk of
+n steps (one replay, one graph a sup/unsup pattern), the augment kernel
+inside the step's or chunk's graph, and each eval and ELBO pass (one
+replay a shipped chunk, one a resident epoch). The Trainer passes the
+gating temperature at every dispatch, so the per-epoch decay reaches the
+graphs' static temperature; a resume or ``load_params`` writes into the
+tensors the graphs read. ``jit=False`` runs every dispatch eagerly, for
+comparison. On a mesh the dispatches are eager by default (they are not
+captured yet), and ``jit=True`` there raises.
 
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
 for NaN and names the first op that made one (``utils/debug_nans.py``,
 the counterpart of ``jax_debug_nans``); a captured dispatch with a NaN is
-replayed op by op through the eager step.
+replayed op by op through its eager counterpart.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ from gltvae_torch.train.steps import (
     make_resident_elbo_step, make_resident_eval_step,
     make_resident_mixed_scan_train_step, make_resident_scan_train_steps,
     make_scan_elbo_step, make_scan_eval_step, make_train_steps, mixed_chunk,
-    resolve_jit)
+    resolve_jit, train_crop)
 from gltvae_torch.utils.debug_nans import nan_checked
 
 logger = logging.getLogger(__name__)
@@ -153,25 +158,29 @@ class Trainer:
         self._replicate()
         self._sup_step, self._unsup_step = make_train_steps(
             model, train_cfg, dp, jit=self._jit)
-        # a chunk of n > 1 steps: the same steps in a loop, each kind as
-        # its flag says (uniform chunks are mixed chunks of one kind)
+        # a chunk of n > 1 steps, each kind as its flag says (uniform
+        # chunks are mixed chunks of one kind): one replay of the graph of
+        # its mask pattern when captured, else the steps in a loop
         self._chunk_step = (mixed_chunk(self._sup_step, self._unsup_step)
                             if self.steps_per_dispatch > 1 else None)
-        self._scan_eval = make_scan_eval_step(model, train_cfg, dp)
-        self._scan_elbo = make_scan_elbo_step(model, train_cfg, dp)
-        self._resident_eval_step = make_resident_eval_step(model, train_cfg,
-                                                           dp)
-        self._resident_elbo_step = make_resident_elbo_step(model, train_cfg,
-                                                           dp)
+        evals = (('_scan_eval', make_scan_eval_step),
+                 ('_scan_elbo', make_scan_elbo_step),
+                 ('_resident_eval_step', make_resident_eval_step),
+                 ('_resident_elbo_step', make_resident_elbo_step))
+        for name, make in evals:
+            setattr(self, name, make(model, train_cfg, dp, jit=self._jit))
         self._debug_nans = debug_nans
         if debug_nans:
-            # a dispatch with a NaN is replayed op by op through the eager
-            # step (as jax_debug_nans re-runs a jitted call de-optimised)
+            # a dispatch with a NaN is replayed op by op through its eager
+            # counterpart (as jax_debug_nans re-runs a jitted call
+            # de-optimised)
             eager = {}
             if self._jit:
                 sup, unsup = make_train_steps(model, train_cfg, jit=False)
                 eager = {'_sup_step': sup, '_unsup_step': unsup,
                          '_chunk_step': mixed_chunk(sup, unsup)}
+                eager.update((name, make(model, train_cfg, jit=False))
+                             for name, make in evals)
             for name in ('_sup_step', '_unsup_step', '_chunk_step',
                          '_scan_eval', '_scan_elbo', '_resident_eval_step',
                          '_resident_elbo_step'):
@@ -221,10 +230,14 @@ class Trainer:
         return x, y
 
     def _augment(self, u8: torch.Tensor) -> torch.Tensor:
-        """Crop + flip + scale a padded train batch, [B, ...] or stacked
-        [n, B, ...], on the device: one launch. Inner step i of a dispatch
-        draws the global batch's crops from global step ``state.step + i``;
-        on a mesh `u8` is this rank's rows and it crops those."""
+        """The augment stage of a padded train batch, [B, ...] or stacked
+        [n, B, ...]: checked against ``augment_pad``, then, with captured
+        steps, returned as it is (the step's or chunk's graph crops it,
+        its host part drawing the offsets), else cropped, flipped and
+        scaled here, on the device, in one launch. Inner step i of a
+        dispatch draws the global batch's crops from global step
+        ``state.step + i``; on a mesh `u8` is this rank's rows and it crops
+        those."""
         pad, size = self.cfg.augment_pad, self.model.cfg.image_size
         expect = size + 2 * pad
         if u8.shape[-3] != expect or u8.shape[-2] != expect:
@@ -233,15 +246,15 @@ class Trainer:
                 f'expects {expect}x{expect} train images but the '
                 f'loader produced {u8.shape[-3]}x{u8.shape[-2]} — set '
                 f'DataConfig.augment_pad to the same value')
+        if self._jit:
+            return u8
         n = u8.shape[0] if u8.dim() == 5 else 1
         world = 1 if self.mesh is None else self.mesh.world
-        B, H, W = u8.shape[-4] * world, u8.shape[-3], u8.shape[-2]
+        B = u8.shape[-4] * world
         rows = slice(None) if self.mesh is None else self.mesh.rows(B)
-        draws = []
-        for i in range(n):
-            g = torch.Generator(device=self.device)
-            g.manual_seed(step_seed(self.cfg.seed + 2, self.state.step + i))
-            draws.append(preprocess.draw_crop_flip(g, B, H, W, size))
+        crop = train_crop(self.model, self.cfg)
+        draws = [crop.draw(self.state.step + i, B, self.device)
+                 for i in range(n)]
         dy, dx, fl = (torch.stack(v)[:, rows].contiguous()
                       for v in zip(*draws))
         if u8.dim() == 5:

@@ -4,14 +4,30 @@
 ``(state, x, y, gating_temp, noise=None) -> (state, metrics)``. A step
 draws its noise from the state's per-step generator unless ``noise`` is
 given and advances the Adam count (its host part), then dequantizes a
-uint8 batch on the device (the dequant kernel; an augmented batch arrives
-as f32 already) and resizes a full-resolution one (``_prep_image``),
-takes the loss and its gradient, and applies Keras Adam in place (its
-device part). ``metrics`` holds 0-d device tensors, so a step never waits
-for the device. By default on one device the steps are captured
-(``jit``): the device part is a CUDA graph replayed at every step on a
-CUDA device (``train/graphs.py``, gltvae's jitted steps); ``jit=False``
-runs it eagerly.
+uint8 batch on the device (the dequant kernel), crops a padded one
+(``TrainConfig.augment_pad``: the augment kernel, its offsets drawn by
+the host part) and resizes a full-resolution one (``_prep_image``), takes
+the loss and its gradient, and applies Keras Adam in place (its device
+part). ``metrics`` holds 0-d device tensors, so a step never waits for
+the device.
+
+By default on one device every maker here is captured (``jit``, gltvae's
+``jax.jit``): the device part of each dispatch is a CUDA graph replayed
+on a CUDA device (``train/graphs.py``), and on the CPU the same
+static-buffer path runs eagerly; ``jit=False`` runs everything eagerly.
+Captured, each dispatch is one replay:
+- a train step (``make_train_steps``), one graph a step kind and input
+  shape;
+- a chunk of n steps (``make_scan_train_steps``,
+  ``make_mixed_scan_train_step``, the resident chunk makers and
+  ``mixed_chunk`` of two captured steps): one graph a sup/unsup mask
+  pattern, whose host part draws the n steps' noise as n single steps
+  would, so it equals them bit for bit;
+- an eval or ELBO pass over n batches (``make_{scan_,resident_,}eval_
+  step``, ``make_{scan_,resident_,}elbo_step``): its host part draws the
+  n batches' noise from the one eval generator, batch by batch, as the
+  eager pass does (``draw_eval_noise``, ``draw_noise``); a resident eval
+  epoch is one replay.
 
 ``TrainConfig.remat`` recomputes the loss's forward in the backward pass
 (``torch.utils.checkpoint``): 'none', 'full' (keeps only the loss's
@@ -22,9 +38,8 @@ convolutions and ``bmm`` included: what the JAX package's
 not a ``dot_general``). The noise is drawn before the loss, so nothing
 inside a recomputed region draws.
 
-The multi-batch forms are Python loops of these steps with the same draws
-(a chunk of n captured steps is n replays), so they equal the per-batch
-calls bit for bit:
+Eagerly, the multi-batch forms are Python loops of the per-batch steps
+with the same draws, so they equal the per-batch calls bit for bit:
 - ``make_scan_train_steps`` / ``make_mixed_scan_train_step``: chunks of
   ``steps_per_dispatch > 1`` over a stacked [n, B, ...] batch;
 - ``make_scan_eval_step`` / ``make_scan_elbo_step``: eval chunks, one
@@ -33,11 +48,12 @@ calls bit for bit:
   device and each batch is gathered from it by an [n, B] index tensor
   (``index_select`` of uint8 rows, then the dequant kernel), so the
   gathered bytes equal what the host would have shipped (a captured
-  step gathers them into its static input).
+  program gathers them inside its graph from a static index buffer).
 
 Every maker takes ``dp``, a ``parallel.dp.DataParallel``, which makes its
 steps the data-parallel ones of parallel/dp.py (gltvae's
-``make_parallel_*``); without it they run on one device.
+``make_parallel_*``); without it they run on one device. Data-parallel
+steps are eager: ``jit=True`` with ``dp`` raises.
 """
 
 from __future__ import annotations
@@ -51,28 +67,62 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from gltvae_torch.config import TrainConfig
 from gltvae_torch.models.ccvae import CCVAE, Temps
+from gltvae_torch.ops import preprocess
 from gltvae_torch.ops.preprocess import dequant
 from gltvae_torch.ops.resize import resize_bilinear
 from gltvae_torch.ops.sampling import sample_gumbel
-from gltvae_torch.train.graphs import JitStep
+from gltvae_torch.train.graphs import (Crop, JitChunk, JitPass, JitStep,
+                                       graph_pool)
 from gltvae_torch.train.state import (TrainState, keras_adam_update,
                                       next_alpha)
 
 
+def _normal(shape, generator, device, out):
+    if out is None:
+        return torch.randn(shape, generator=generator, device=device)
+    return torch.randn(shape, generator=generator, out=out)
+
+
 def draw_noise(model: CCVAE, batch: int, supervised: bool, k: int,
-               generator: torch.Generator) -> dict:
-    """Every draw of one train step, in the order the losses take them."""
+               generator: torch.Generator, out: Optional[dict] = None
+               ) -> dict:
+    """Every draw of one train step, in the order the losses take them
+    (also an ELBO batch's: ``supervised`` False, k 0). With `out` (a dict
+    of buffers of the draws' shapes) they are drawn into it."""
     c = model.cfg
     dev = model.mu.device
-    n = lambda shape: torch.randn(shape, generator=generator, device=dev)
-    gumbel = lambda: sample_gumbel(model.mu.shape, generator, device=dev)
-    noise = {'eps_z': n((batch, c.z_dim)), 'g1': gumbel(), 'g2': gumbel()}
+    o = out or {}
+    gumbel = lambda name: sample_gumbel(model.mu.shape, generator,
+                                        device=dev, out=o.get(name))
+    noise = {'eps_z': _normal((batch, c.z_dim), generator, dev,
+                              o.get('eps_z')),
+             'g1': gumbel('g1'), 'g2': gumbel('g2')}
     if supervised:
-        noise['eps_k'] = n((k, batch, c.z_dim))
+        noise['eps_k'] = _normal((k, batch, c.z_dim), generator, dev,
+                                 o.get('eps_k'))
+    elif 'u_y' in o:
+        noise['u_y'] = torch.rand((batch, c.y_dim), generator=generator,
+                                  out=o['u_y'])
     else:
         noise['u_y'] = torch.rand((batch, c.y_dim), generator=generator,
                                   device=dev)
     return noise
+
+
+def draw_eval_noise(model: CCVAE, batch: int, generator: torch.Generator,
+                    out: Optional[dict] = None) -> dict:
+    """One stochastic eval batch's draws, in the order ``predict_probs``
+    takes them from a generator: z's normals, then the two gate Gumbels
+    (the order ``parallel.dp.DataParallel.eval_noise`` records). With
+    `out` they are drawn into it."""
+    dev = model.mu.device
+    o = out or {}
+    return {'eps_z': _normal((batch, model.cfg.z_dim), generator, dev,
+                             o.get('eps_z')),
+            'g1': sample_gumbel(model.mu.shape, generator, device=dev,
+                                out=o.get('g1')),
+            'g2': sample_gumbel(model.mu.shape, generator, device=dev,
+                                out=o.get('g2'))}
 
 
 def _metrics(loss, aux):
@@ -119,15 +169,23 @@ def remat(fn: Callable, mode: str) -> Callable:
 
 
 def resolve_jit(jit: Optional[bool], dp) -> bool:
-    """Whether train steps are captured: by default on one device; with
-    `dp` (a ``DataParallel``, or the Trainer's mesh) they are eager, and
-    asking for both raises."""
+    """Whether a maker's dispatches are captured: by default on one
+    device; with `dp` (a ``DataParallel``, or the Trainer's mesh) they are
+    eager, and asking for both raises."""
     if jit and dp is not None:
         raise ValueError(
             'jit=True on a mesh: the data-parallel step is not captured yet '
-            '(ROADMAP Queue 4, "the data-parallel step with NCCL '
+            '(ROADMAP Queue 4 item 3, "the data-parallel step with NCCL '
             'captured"); pass jit=False')
     return dp is None if jit is None else jit
+
+
+def train_crop(model: CCVAE, train_cfg: TrainConfig) -> Optional[Crop]:
+    """The augment stage of `model`'s train steps (None without
+    ``augment_pad``)."""
+    if train_cfg.augment_pad <= 0:
+        return None
+    return Crop(model.cfg.image_size, train_cfg.augment_pad, train_cfg.seed)
 
 
 def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
@@ -139,19 +197,25 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     are this rank's rows, `noise` is the global batch's draws, and the
     gradients and metrics are averaged over the ranks.
 
-    A step is a host part (the noise, the Adam count and alpha, the step
-    counter) and a device part (input stage, loss, gradient, Keras Adam,
-    metrics). With `jit` (the default on one device) the steps are
-    ``graphs.JitStep``s: on a CUDA device the device part is a CUDA graph,
-    captured once per input shape and dtype and replayed at each step
-    (gltvae's ``jax.jit(step, donate_argnums=(0,))``); on the CPU the same
-    static-buffer path runs eagerly. ``jit=False`` gives the plain eager
-    steps, which the data-parallel steps always are: ``jit=True`` with
-    `dp` raises."""
+    A step is a host part (the noise, the augment offsets of a padded
+    batch, the Adam count and alpha, the step counter) and a device part
+    (input stage, loss, gradient, Keras Adam, metrics). With `jit` (the
+    default on one device) the steps are ``graphs.JitStep``s: on a CUDA
+    device the device part is a CUDA graph, captured once per input shape
+    and dtype and replayed at each step (gltvae's ``jax.jit(step,
+    donate_argnums=(0,))``); on the CPU the same static-buffer path runs
+    eagerly. ``jit=False`` gives the plain eager steps, which the
+    data-parallel steps always are: ``jit=True`` with `dp` raises.
+
+    With ``train_cfg.augment_pad`` P > 0 on one device, a uint8 batch
+    padded to S + 2P is cropped by the augment kernel inside the step
+    (inside its graph when captured), with the offsets of global step
+    ``state.step`` (``graphs.Crop``); any other batch goes in as it is."""
     jit = resolve_jit(jit, dp)
     gating_reg = train_cfg.gating_reg if model.cfg.mu_trainable else 0.0
     k = train_cfg.classifier_mc_samples
     size = model.cfg.image_size
+    crop = train_crop(model, train_cfg) if dp is None else None
 
     def sup_loss(model, x, y, temps, noise):
         return model.sup_loss(x, y, temps, gating_reg=gating_reg, k=k,
@@ -186,15 +250,15 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
         return part
 
     def host_noise(supervised: bool) -> Callable:
-        """(state, b, noise) -> the step's draws: `noise` when given, else
-        drawn from the state's per-step generator (on a mesh, this rank's
-        rows of the global batch's)."""
-        def draws(state: TrainState, b: int, noise):
+        """(state, b, noise, out=None) -> the step's draws: `noise` when
+        given, else drawn from the state's per-step generator (into `out`
+        when given; on a mesh, this rank's rows of the global batch's)."""
+        def draws(state: TrainState, b: int, noise, out=None):
             if dp is not None:
                 return dp.local_noise(state, b, supervised, k, noise)
             if noise is None:
                 noise = draw_noise(state.model, b, supervised, k,
-                                   state.next_generator())
+                                   state.next_generator(), out=out)
             return noise
         return draws
 
@@ -204,6 +268,9 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
         def step(state: TrainState, x, y, gating_temp,
                  noise: Optional[dict] = None):
             noise = draws(state, x.shape[0], noise)
+            if crop is not None and crop.takes(x.shape, x.dtype):
+                x = preprocess.fused_augment_given(
+                    x, *crop.draw(state.step, x.shape[0], x.device), size)
             alpha = next_alpha(state, train_cfg.lr)
             metrics = part(state, x, y, gating_temp, alpha, noise)
             state.step += 1
@@ -214,9 +281,9 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     if not jit:
         return eager(True), eager(False)
     dev = model.mu.device
-    pool = torch.cuda.graph_pool_handle() if dev.type == 'cuda' else None
+    pool = graph_pool(dev)
     return tuple(JitStep(device_part(s), host_noise(s), train_cfg.lr, dev,
-                         pool) for s in (True, False))
+                         pool, crop) for s in (True, False))
 
 
 def _stack(mets):
@@ -234,28 +301,14 @@ def _run_chunk(sup, unsup, state: TrainState, batches: Iterable,
     return state, _stack(mets)
 
 
-def _run_gathered(sup, unsup, state: TrainState, sources: Iterable, idxs,
-                  sup_mask: Sequence[bool], gating_temp):
-    """Resident inner steps on one device: step j trains on rows idxs[j]
-    of sources[j] (images, labels), gathered into a captured step's static
-    inputs (``JitStep.gathered``) or, for a plain step, into new
-    tensors."""
-    mets = []
-    for (images, labels), i, m in zip(sources, idxs, sup_mask):
-        step = sup if m else unsup
-        if isinstance(step, JitStep):
-            state, met = step.gathered(state, images, labels, i, gating_temp)
-        else:
-            state, met = step(state, images.index_select(0, i),
-                              labels.index_select(0, i), gating_temp)
-        mets.append(met)
-    return state, _stack(mets)
-
-
 def mixed_chunk(sup: Callable, unsup: Callable) -> Callable:
     """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]) of
     the steps `sup` and `unsup`: inner step j runs `sup` where
-    sup_mask[j], else `unsup`, on xs[j], ys[j]."""
+    sup_mask[j], else `unsup`, on xs[j], ys[j]. Two captured steps give a
+    ``graphs.JitChunk`` (one replay a chunk), any others a loop."""
+    if isinstance(sup, JitStep) and isinstance(unsup, JitStep):
+        return JitChunk(sup, unsup)
+
     def chunk(state: TrainState, xs, ys, sup_mask: Sequence[bool],
               gating_temp):
         if not len(xs) == len(ys) == len(sup_mask):
@@ -271,8 +324,8 @@ def make_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
                                ) -> Callable:
     """(state, xs, ys, sup_mask, gating_temp) -> (state, metrics [n]):
     inner step j runs the sup step where sup_mask[j], else the unsup step,
-    on xs[j], ys[j]. `jit` as ``make_train_steps``: a chunk of n steps is
-    n replays."""
+    on xs[j], ys[j]. `jit` as ``make_train_steps``: a chunk is one replay
+    of the graph of its mask pattern."""
     return mixed_chunk(*make_train_steps(model, train_cfg, dp, jit))
 
 
@@ -306,18 +359,19 @@ def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig,
     """Device-resident training chunks (scan_sup, scan_unsup):
     (state, images [N, H, W, C] u8, labels [N, y] f32, idxs [n, B] int,
     gating_temp) -> (state, metrics [n]). Inner step j trains on rows
-    idxs[j], gathered on the device (captured steps gather them into their
-    static inputs). With `dp`, images are this rank's resident rows
+    idxs[j], gathered on the device (a captured chunk gathers them inside
+    its graph). With `dp`, images are this rank's resident rows
     (``parallel.dp.place_resident_split``)."""
     sup, unsup = make_train_steps(model, train_cfg, dp, jit)
+    jitted = isinstance(sup, JitStep)
+    chunk = JitChunk(sup, unsup) if jitted else None
 
     def make(kind: bool):
         def scan(state: TrainState, images, labels, idxs, gating_temp):
             mask = [kind] * len(idxs)
-            if dp is None:
-                return _run_gathered(sup, unsup, state,
-                                     [(images, labels)] * len(idxs), idxs,
-                                     mask, gating_temp)
+            if jitted:
+                return chunk.gathered(state, [(images, labels)] * len(idxs),
+                                      idxs, mask, gating_temp)
             return _run_chunk(sup, unsup, state,
                               _resident_batches(dp, images, labels, idxs),
                               mask, gating_temp)
@@ -335,6 +389,8 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
     ``next(sup_iter if flag else unsup_iter)`` consumes. With `dp`, one
     exchange a split gathers the rows of its steps."""
     sup, unsup = make_train_steps(model, train_cfg, dp, jit)
+    jitted = isinstance(sup, JitStep)
+    jchunk = JitChunk(sup, unsup) if jitted else None
 
     def chunk(state: TrainState, images_sup, labels_sup, images_unsup,
               labels_unsup, idxs, sup_mask: Sequence[bool], gating_temp):
@@ -344,8 +400,13 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
         if dp is None:
             sources = [(images_sup, labels_sup) if m
                        else (images_unsup, labels_unsup) for m in sup_mask]
-            return _run_gathered(sup, unsup, state, sources, idxs, sup_mask,
-                                 gating_temp)
+            if jitted:
+                return jchunk.gathered(state, sources, idxs, sup_mask,
+                                       gating_temp)
+            return _run_chunk(sup, unsup, state, (
+                (images.index_select(0, i), labels.index_select(0, i))
+                for (images, labels), i in zip(sources, idxs)), sup_mask,
+                gating_temp)
         got = {}
         for kind, images, labels in ((True, images_sup, labels_sup),
                                      (False, images_unsup, labels_unsup)):
@@ -358,12 +419,44 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
     return chunk
 
 
-def make_eval_step(model: CCVAE, train_cfg: TrainConfig,
-                   dp=None) -> Callable:
+def _eval_pass(model: CCVAE, train_cfg: TrainConfig) -> JitPass:
+    """The captured eval pass of `model`: batch accuracies, stochastic
+    unless train_cfg.deterministic_eval."""
+    det = train_cfg.deterministic_eval
+    size = model.cfg.image_size
+
+    def fn(model: CCVAE, x, y, temp, noise):
+        return model.classifier_accuracy(_prep_image(x, size),
+                                         y.to(torch.float32),
+                                         Temps(gating=temp),
+                                         deterministic=det, noise=noise)
+    return JitPass(model, fn, None if det else draw_eval_noise)
+
+
+def _elbo_pass(model: CCVAE) -> JitPass:
+    """The captured ELBO pass of `model`: mean unsupervised ELBOs."""
+    size = model.cfg.image_size
+
+    def fn(model: CCVAE, x, y, temp, noise):
+        return model.unsup_loss(_prep_image(x, size), Temps(gating=temp),
+                                noise=noise)[1].elbo
+
+    def draw(model, b, generator, out=None):
+        return draw_noise(model, b, False, 0, generator, out=out)
+    return JitPass(model, fn, draw)
+
+
+def make_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                   jit: Optional[bool] = None) -> Callable:
     """(model, x, y, generator, gating_temp) -> batch accuracy (0-d tensor).
     Stochastic unless train_cfg.deterministic_eval. With `dp`, x and y are
     this rank's rows, the draws are the global batch's, and the accuracy
-    is the global batch's."""
+    is the global batch's. `jit` as ``make_train_steps`` (the rule of
+    ``resolve_jit``): a captured pass of one batch."""
+    if resolve_jit(jit, dp):
+        jp = _eval_pass(model, train_cfg)
+        return lambda model, x, y, generator, gating_temp: jp.stacked(
+            model, x[None], y[None], generator, gating_temp, 'batch')[0]
     det = train_cfg.deterministic_eval
     size = model.cfg.image_size
 
@@ -381,11 +474,15 @@ def make_eval_step(model: CCVAE, train_cfg: TrainConfig,
     return eval_step
 
 
-def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig,
-                        dp=None) -> Callable:
+def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                        jit: Optional[bool] = None) -> Callable:
     """(model, x, generator, gating_temp) -> mean unsupervised ELBO. With
     `dp`: this rank's rows, the global batch's draws, the mean over the
-    ranks."""
+    ranks. `jit` as ``make_eval_step``."""
+    if resolve_jit(jit, dp):
+        jp = _elbo_pass(model)
+        return lambda model, x, generator, gating_temp: jp.stacked(
+            model, x[None], None, generator, gating_temp, 'batch')[0]
     size = model.cfg.image_size
 
     @torch.no_grad()
@@ -399,11 +496,14 @@ def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig,
     return elbo_step
 
 
-def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig,
-                        dp=None) -> Callable:
+def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                        jit: Optional[bool] = None) -> Callable:
     """(model, xs, ys, generator, gating_temp) -> accs [n] over stacked
-    [n, B, ...] batches: n make_eval_step calls with one generator."""
-    ev = make_eval_step(model, train_cfg, dp)
+    [n, B, ...] batches: n make_eval_step calls with one generator
+    (captured: one replay)."""
+    if resolve_jit(jit, dp):
+        return _eval_pass(model, train_cfg).stacked
+    ev = make_eval_step(model, train_cfg, dp, jit=False)
 
     def scan(model: CCVAE, xs, ys, generator, gating_temp):
         return torch.stack([ev(model, x, y, generator, gating_temp)
@@ -411,11 +511,16 @@ def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig,
     return scan
 
 
-def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig,
-                        dp=None) -> Callable:
+def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                        jit: Optional[bool] = None) -> Callable:
     """(model, xs, generator, gating_temp) -> elbos [n] over stacked
-    batches: n make_elbo_eval_step calls with one generator."""
-    el = make_elbo_eval_step(model, train_cfg, dp)
+    batches: n make_elbo_eval_step calls with one generator (captured:
+    one replay)."""
+    if resolve_jit(jit, dp):
+        jp = _elbo_pass(model)
+        return lambda model, xs, generator, gating_temp: jp.stacked(
+            model, xs, None, generator, gating_temp)
+    el = make_elbo_eval_step(model, train_cfg, dp, jit=False)
 
     def scan(model: CCVAE, xs, generator, gating_temp):
         return torch.stack([el(model, x, generator, gating_temp)
@@ -423,12 +528,16 @@ def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig,
     return scan
 
 
-def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig,
-                            dp=None) -> Callable:
+def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                            jit: Optional[bool] = None) -> Callable:
     """Device-resident eval: (model, images, labels, idxs [n, B],
     generator, gating_temp) -> accs [n], batch j gathered from rows
-    idxs[j]; the generator advances as in the per-batch path."""
-    ev = make_eval_step(model, train_cfg, dp)
+    idxs[j]; the generator advances as in the per-batch path. Captured,
+    a pass (a whole eval epoch in the Trainer) is one replay that gathers
+    its rows inside the graph."""
+    if resolve_jit(jit, dp):
+        return _eval_pass(model, train_cfg).resident
+    ev = make_eval_step(model, train_cfg, dp, jit=False)
 
     def resident(model: CCVAE, images, labels, idxs, generator,
                  gating_temp):
@@ -438,11 +547,15 @@ def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig,
     return resident
 
 
-def make_resident_elbo_step(model: CCVAE, train_cfg: TrainConfig,
-                            dp=None) -> Callable:
+def make_resident_elbo_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
+                            jit: Optional[bool] = None) -> Callable:
     """Device-resident ELBO: (model, images, idxs [n, B], generator,
-    gating_temp) -> elbos [n]."""
-    el = make_elbo_eval_step(model, train_cfg, dp)
+    gating_temp) -> elbos [n] (captured: one replay)."""
+    if resolve_jit(jit, dp):
+        jp = _elbo_pass(model)
+        return lambda model, images, idxs, generator, gating_temp: \
+            jp.resident(model, images, None, idxs, generator, gating_temp)
+    el = make_elbo_eval_step(model, train_cfg, dp, jit=False)
 
     def resident(model: CCVAE, images, idxs, generator, gating_temp):
         xs = ((x for x, _ in dp.resident_batches(images, None, idxs))

@@ -19,9 +19,11 @@ a NaN, forward or backward (anomaly mode adds the forward call that made
 the failing backward node). The op-by-op check is on only for that replay,
 so a clean dispatch never stops at a masked NaN (the μ≥1 hardening in
 ``ops/sampling.py``). A clean dispatch pays a copy of the state and one
-wait for the device. A captured train step (train/graphs.py) launches a
-graph, not ops, so its replay runs the eager step instead (``replay=``),
-from the same state and the same per-step draws.
+wait for the device. A captured dispatch (a train step or chunk, an eval
+or ELBO pass; train/graphs.py) launches a graph, not ops, so its replay
+runs the eager counterpart instead (``replay=``), from the same state and
+the same draws: the per-step generators are seeded by the step, and the
+eval generator is put back first.
 
 On a mesh (``nan_checked(fn, mesh)``) the dispatch holds collectives, so
 every rank must replay or none: the "a NaN is present" decision is

@@ -101,8 +101,8 @@ def assert_same(a, b):
 
 def fake_capture(state):
     """A capture function for `state`'s steps on the CPU (see the module
-    docstring). Its replays add nothing to the dequant count: a graph's
-    replay calls no wrapper."""
+    docstring). Its replays add nothing to the dequant and augment
+    counts: a graph's replay calls no wrapper."""
     def capture(fn, pool):
         saved = [t.detach().clone() for t in graphs._state_tensors(state)]
         out = fn()
@@ -114,9 +114,9 @@ def fake_capture(state):
             replays = 0
 
             def replay(self):
-                n = preprocess.launches
+                n = preprocess.launches, preprocess.augment_launches
                 new = fn()
-                preprocess.launches = n
+                preprocess.launches, preprocess.augment_launches = n
                 for k, v in out.items():
                     v.copy_(new[k])
                 Graph.replays += 1
@@ -410,12 +410,14 @@ def _result(path):
 
 def test_trainer_captured_equals_eager(monkeypatch, tmp_path):
     """Two epochs of the Trainer with jit=True and jit=False: equal
-    metrics.csv and result.json (times apart); the captured steps' static
-    temperature in epoch 2 is 0.99x epoch 1's."""
+    metrics.csv and result.json (times apart); the captured train
+    programs' static temperature (resident chunks of one step each) in
+    epoch 2 is 0.99x epoch 1's."""
     temps = []
-    call = CapturedStep.__call__
-    monkeypatch.setattr(CapturedStep, '__call__', lambda self, state: (
-        temps.append(float(self.temp)), call(self, state))[1])
+    call = graphs.Captured.__call__
+    monkeypatch.setattr(graphs.Captured, '__call__', lambda self, owner: (
+        self.writes and temps.append(float(self.temp)),
+        call(self, owner))[1])
     for jit in (True, False):
         trainer, loaders, run = trainer_run(tmp_path, f'jit_{jit}', jit)
         result = trainer.train(loaders, param_dir=str(run), log_every=1)

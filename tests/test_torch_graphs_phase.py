@@ -163,14 +163,15 @@ def test_the_graph_audit_holds_each_capture_to_its_count(monkeypatch,
                                                          tmp_path, counted,
                                                          nodes):
     """audit_graphs reads a captured graph's node dump at its capture: a
-    graph holding the dequant kernel as often as the capture counted
-    (one launch here) is tallied; a graph without it fails the capture.
-    The stand-in graph's dump lists `nodes` dequant kernel nodes."""
+    graph holding the dequant and augment kernels as often as the capture
+    counted (one dequant launch and no augment here) is tallied; a graph
+    without it fails the capture. The stand-in graph's dump lists `nodes`
+    dequant kernel nodes."""
     monkeypatch.setattr(chip_smoke, 'ROOT', str(tmp_path))
     # audit_graphs patches these for the rest of its process
     monkeypatch.setattr(graphs, '_cuda_capture', graphs._cuda_capture)
-    monkeypatch.setattr(graphs.CapturedStep, '_capture',
-                        graphs.CapturedStep._capture)
+    monkeypatch.setattr(graphs.Captured, '_capture',
+                        graphs.Captured._capture)
     tally = chip_smoke.audit_graphs()
     model_cfg, train_cfg = configs()
     state, (sup, _) = fresh(model_cfg, train_cfg, True)
@@ -189,8 +190,99 @@ def test_the_graph_audit_holds_each_capture_to_its_count(monkeypatch,
     (x, y), = batches(1)
     if nodes:
         sup(state, x, y, 1.0)
-        assert tally == {'graphs': 1, 'dequant_nodes': 1}
+        counts = {k: tally[k] for k in ('graphs', 'dequant_nodes',
+                                        'augment_nodes', 'kinds')}
+        assert counts == {'graphs': 1, 'dequant_nodes': 1,
+                          'augment_nodes': 0, 'kinds': {'CapturedStep': 1}}
+        assert list(tally['capture_s']) == ['CapturedStep']
+        assert tally['capture_s']['CapturedStep'] > 0
     else:
-        with pytest.raises(RuntimeError, match='holds 0 dequant kernel'):
+        with pytest.raises(RuntimeError, match='holds 0 dequant and 0 '
+                           'augment kernel'):
             sup(state, x, y, 1.0)
-        assert tally == {'graphs': 0, 'dequant_nodes': 0}
+        assert tally == {'graphs': 0, 'dequant_nodes': 0,
+                         'augment_nodes': 0, 'kinds': {}, 'capture_s': {},
+                         'dump_s': 0.0}
+
+
+def _tiny_configs(monkeypatch, tmp_path):
+    """Phase 41's configurations at batch 8 (the sweep's stand-in at 64 px
+    with 18 labels, as phase 37's inputs)."""
+    def small(image_size, y_dim):
+        return tcfg.ModelConfig(
+            image_size=image_size, z_dim=24 if y_dim == 18 else 8,
+            y_dim=y_dim, enc_features=(8,) * (4 if image_size == 64 else 2),
+            enc_hidden=16, dec_features=(16, 8, 8, 8)[:4 if image_size == 64
+                                                      else 2])
+
+    def train(sup, **kw):
+        return tcfg.TrainConfig(perc_supervision=sup, classifier_mc_samples=4,
+                                **kw)
+    monkeypatch.setattr(chip_smoke, 'BATCH', B)
+    monkeypatch.setattr(chip_smoke, 'SWEEP_BATCH', B)
+    monkeypatch.setattr(chip_smoke, 'ROOT', str(tmp_path))
+    monkeypatch.setattr(tcfg, 'default_celeba64', lambda sup, **kw: (
+        small(16, 4), train(sup, **kw)))
+    # the 128 px model's stand-in at 16 px (the phase sets bf16 and s2d)
+    monkeypatch.setattr(tcfg, 'celeba128', lambda sup, **kw: (
+        small(16, 4), train(sup, **kw)))
+    monkeypatch.setattr(tcfg, 'dp_sweep', lambda: [(
+        'tiny', dataclasses.replace(small(64, 18), compute_dtype='bfloat16'),
+        train(0.2, batch_size=B))])
+
+
+def test_dispatch_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, capsys,
+                                             counted):
+    """Phase 41 whole at batch 8: (a) eval and ELBO captured bit-equal to
+    eager for both models, stochastic and deterministic, one dequant
+    launch a batch; (b) the chunks, resident chunks and single captured
+    steps bit-equal to eager, 16 launches each; (c) the augmented legs
+    bit-equal with 8, 8 and 2 augment launches; (d) both Trainer runs
+    equal both ways; (e) 5 x 3 speed lines, 1 for the bench twin's large
+    resident pass and 2 meter lines."""
+    _tiny_configs(monkeypatch, tmp_path)
+    aug = preprocess._augment
+
+    def counted_augment(*a, **k):       # where the card would launch
+        preprocess.augment_launches += 1
+        return aug(*a, **k)
+    monkeypatch.setattr(preprocess, '_augment', counted_augment)
+    monkeypatch.setattr(preprocess, 'augment_launches', 0)
+    monkeypatch.setattr(chip_smoke, 'EVAL_SPLIT', 2 * B)
+    monkeypatch.setattr(chip_smoke, 'SPEED_EVAL_IMAGES', 8 * B)
+    monkeypatch.setattr(chip_smoke, 'DISPATCH_UNITS', 2)
+    monkeypatch.setattr(chip_smoke, 'DISPATCH_PROFILED', 1)
+    monkeypatch.setattr(chip_smoke, 'BENCH_EVAL_BATCHES', 3)
+    out = chip_smoke.dispatch_phase(CPU, 'cpu')
+    # (a) per model and mode: 2 rounds of (2 splits x 2 batches x eval
+    # and ELBO + 4 stacked batches x eval and ELBO)
+    assert out['eval'] == {f'{m}_{d}': 32 for m in ('64', '128')
+                           for d in ('stochastic', 'det')}
+    assert out['chunks'] == {'64': 16, '128': 16}
+    assert out['augment'] == {'eager': 8, 'steps': 8, 'chunks': 2}
+    assert out['trainer'] == (22, 22)
+    assert out['trainer_augment'] == ((4, 6), (4, 6))
+    assert len(out['speed']) == 18
+    printed = capsys.readouterr().out
+    assert printed.count('[phase 41]') == 4 + 2 + 1 + 1 + 1
+    assert printed.count('graphs_speed: ') == 18
+    assert 'not bit-equal' not in printed
+
+
+def test_eval_legs_catch_a_draw_out_of_order(monkeypatch):
+    """A captured ELBO pass whose host part drew the batches' Gumbels in
+    another order than the eager pass: (a) finds the values and the eval
+    generator's state unequal."""
+    from gltvae_torch.train import steps as ts
+    model_cfg, train_cfg = configs()
+    monkeypatch.setattr(chip_smoke, 'BATCH', B)
+    draw = ts.draw_noise
+
+    def swapped(model, b, supervised, k, gen, out=None):
+        noise = draw(model, b, supervised, k, gen, out=out)
+        noise['g1'], noise['g2'] = noise['g2'], noise['g1']
+        return noise
+    monkeypatch.setattr(ts, 'draw_noise', swapped)
+    splits = chip_smoke.eval_splits(model_cfg, CPU, rows=2 * B)
+    res = chip_smoke.eval_legs(model_cfg, train_cfg, mu_init(), splits, CPU)
+    assert not res['equal'] and res['gap'] > 0

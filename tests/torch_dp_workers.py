@@ -166,6 +166,10 @@ def trainer(mesh, local: bool = False, pad: int = 0, epochs: int = 2,
                                    augment_pad=pad)
     lds, mu = loaders(mesh, local, pad)
     kw = dict(device='cpu', mesh=mesh, local_batches=local)
+    if pad and mesh is None:
+        # crops made eagerly, so that they can be kept (a captured step
+        # makes them inside its graph); a mesh's steps are eager anyway
+        kw['jit'] = False
     if run_dir is not None:
         kw.update(checkpoint_dir=os.path.join(run_dir, 'checkpoints'),
                   metrics_path=os.path.join(run_dir, 'metrics.csv'))

@@ -92,6 +92,7 @@ _EVAL = object()
 def gltvae_draws(draws):
     """The port's Trainer takes its train and eval noise from `draws`."""
     next_gen, draw_noise = TrainState.next_generator, tsteps.draw_noise
+    draw_eval = tsteps.draw_eval_noise
     predict, init = CCVAE.predict_probs, Trainer.__init__
 
     def predict_probs(self, x, temps, deterministic=False, noise=None,
@@ -105,14 +106,19 @@ def gltvae_draws(draws):
         self._eval_gen = _EVAL
 
     TrainState.next_generator = lambda self: _Step(self.step)
-    tsteps.draw_noise = lambda model, batch, supervised, k, gen: \
+    tsteps.draw_noise = lambda model, batch, supervised, k, gen, out=None: \
         draws.step_noise(gen.step, batch, supervised, k)
+    # a captured eval pass draws in its host part, batch by batch
+    tsteps.draw_eval_noise = lambda model, batch, gen, out=None: (
+        draws.eval_noise(batch) if gen is _EVAL
+        else draw_eval(model, batch, gen, out))
     CCVAE.predict_probs = predict_probs
     Trainer.__init__ = trainer_init
     try:
         yield
     finally:
         TrainState.next_generator, tsteps.draw_noise = next_gen, draw_noise
+        tsteps.draw_eval_noise = draw_eval
         CCVAE.predict_probs, Trainer.__init__ = predict, init
 
 
