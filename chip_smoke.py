@@ -98,8 +98,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     with a TCP coordinator and one process): phase 5's run through
     ``Trainer(mesh=)`` equals phase 5's run without a mesh bit for bit
     (params, Adam moments, every metric row) with its 22 dequant
-    launches, both on cuDNN's deterministic algorithms (the default ones
-    do not repeat a run bit for bit);
+    launches, captured against captured (the mesh's default over NCCL)
+    and eager against eager, all on cuDNN's deterministic algorithms (the
+    default ones do not repeat a run bit for bit);
 31. two ranks on the one card over gloo (NCCL refuses two ranks on one
     GPU), spawned with a file:// store under build/chip_smoke_dp/, each
     running phase 5's resident path and phase 9's augmented path
@@ -147,8 +148,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     4096-row and 1024-row steps sum in different orders); a 5,099-row
     eval resident (the row exchange) and shipped, equal on every rank and
     in both legs, within 1e-3 of the one process, through
-    all_gather_into_tensor on NCCL. On one card it says that NCCL across
-    cards did not run and runs nothing in its place;
+    all_gather_into_tensor on NCCL; the NCCL ranks run the steps and evals
+    once more captured, bit-equal to their eager leg or else within phase
+    31's one-step rules with the gaps printed. On one card it says that
+    NCCL across cards did not run and runs nothing in its place;
 38. ``parity_head2head`` on the 2,100-image parity corpus (seed 0, written
     under build/chip_smoke_h2h/), learnable/inferred sup=0.2 for 12 epochs
     at bs 64, its reference leg the recorded one
@@ -182,7 +185,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     to first step, and the device ms a step on the slowest card (NCCL's
     kernels apart) from a separate one-epoch run of the same command whose
     dispatches 4-11 are profiled; dequant timed at (1024, 64, 64, 3) and
-    (2048, 64, 64, 3). Each process that fails or outlives 600 s fails the
+    (2048, 64, 64, 3). The mesh of one runs captured (the default over
+    NCCL on one rank; past one rank the default is eager), and the step
+    wall is printed beside the eager one recorded on four cards. Each process that fails or outlives 600 s fails the
     phase (its session killed);
 40. the captured train step (``train/graphs.py``, gltvae's jitted step):
     (a) phase 5's model, 16 steps of the sup 0.5 interleave from one
@@ -222,12 +227,38 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     one graph (median synchronized wall, img/s, device ms, busy, host
     launches, peak memory, the card), then phase 5's Trainer meter
     captured and eager on the default algorithms; (f) the tally of the
-    graph audit (``audit_graphs``).
+    graph audit (``audit_graphs``);
+42. gltvae's compiled mesh dispatches: the data-parallel steps, chunks,
+    eval and ELBO passes and inference as CUDA graphs with the NCCL
+    collectives inside, on ranks spawned one a card (a mesh of one over
+    NCCL; with ``--sweep-only`` on 2 or more cards also D = 2 and
+    min(cards, 4)), each killed after 600 s; (a)-(c) on cuDNN's
+    deterministic algorithms: (a) phase 5's model, 16 steps of the
+    interleave as single steps, as chunks of 4, 4, 4, 3 and 1 (shipped,
+    and gathered from resident splits through ``gather_rows``) and as the
+    shardmap steps, each captured against eager on the same mesh (at D =
+    1 bit for bit, and the captured mesh equal to the captured run
+    without a mesh; past one rank bit for bit or within ``F32_TOL`` with
+    the gaps printed); (b) the eval and ELBO passes (resident epochs and
+    chunks of 4, stochastic and deterministic) and phase 9's augmented
+    steps and chunks, captured against eager, each rank's crops its rows
+    of the one-process crops; (c) ``infer.make_predict`` over the batches
+    of 448 JPEGs from the seed, deterministic and stochastic, on one
+    device and on the mesh: captured probabilities bit-equal to eager;
+    (d) each rank's graph audit, which also holds a mesh graph's NCCL
+    kernel nodes to the collectives its capture issued (none on a mesh of
+    one, where NCCL launches no kernel); (e) a ``dp_graphs_speed:`` JSON
+    line for ``config.dp_sweep()[0]``'s step (bf16, global batch 4096,
+    4096/D rows a rank) and a chunk of 4, eager and captured: first call,
+    waited and back-to-back walls, img/s, device ms and NCCL ms on the
+    slowest rank, busy share, host launches, peak memory, the card; and
+    the phase's wall.
 
 Phases 5, 9, 11, 13, 18-22, 27-29 and 33-38 train and evaluate through
-captured programs (the Trainer's default on one device); phase 30's run
-without a mesh is eager (held bit for bit to the mesh of one, whose
-dispatches are eager); phases 31 and 39 run on meshes. The dequant and
+captured programs (the Trainer's default on one device and on an NCCL
+mesh of one); phase 30 runs both ways, with and without the mesh of one;
+phases 31 and 39 run on meshes (31 over gloo on one card, eager; 39 over
+NCCL, captured on one rank, eager past one). The dequant and
 augment launches of captured programs are counted at their replays
 (``train/graphs.py``), and every program captured in this process is
 audited at its capture (``audit_graphs``, after phase 2): its graph must
@@ -236,10 +267,12 @@ Phase 41 (f) prints the audit's tally; phases 37 and 40 (d) also print
 how many dequant kernels torch.profiler saw run.
 
 The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37 and
-39 alone (the check to run on four cards: phase 39 then also at D = 2
-and min(cards, 4), one rank a card); ``--graphs-only`` runs phases 1-2,
-40 and 41. ``--h2h-only`` runs phases 1-2,
+{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37, 42
+and 39 alone (the check to run on four cards: phases 42 and 39 then also
+at D = 2 and min(cards, 4), one rank a card; ``--worlds 2,4`` picks
+their rank counts, to leave out D = 1, which every whole run covers);
+``--graphs-only`` runs
+phases 1-2 and 40-42. ``--h2h-only`` runs phases 1-2,
 then the recorded head-to-head matrix through the harness in one workdir
 (9 cells at 12 epochs but fixed/one-one sup=1.0 at 30, and that cell at
 12 epochs with training seeds 1-4), one line a cell, and ``--h2h-out DIR``
@@ -588,6 +621,29 @@ def device_launches(events, kernel=DEQUANT_KERNEL):
 #: (gltvae_torch/csrc/augment.cu).
 AUGMENT_KERNEL = 'augment_kernel'
 
+#: The node kinds of a graph's dump (``cudaGraphDebugDotPrint``), each
+#: node's record starting with its kind.
+NODE_KINDS = ('KERNEL', 'MEMCPY', 'MEMSET', 'HOST', 'GRAPH', 'EMPTY',
+              'WAIT_EVENT', 'EVENT_RECORD', 'EXT_SEMAS_SIGNAL',
+              'EXT_SEMAS_WAIT', 'MEM_ALLOC', 'MEM_FREE', 'BATCH_MEM_OP',
+              'CONDITIONAL')
+
+
+def nccl_nodes(text):
+    """The kernel nodes of a graph's dump that run an NCCL kernel: the
+    records that start with KERNEL and name a kernel ``nccl...`` before
+    the next node's kind."""
+    import re
+    parts = re.split(r'\b(' + '|'.join(NODE_KINDS) + r')\b', text)
+    return sum(1 for kind, body in zip(parts[1::2], parts[2::2])
+               if kind == 'KERNEL' and 'nccl' in body.lower())
+
+
+def mesh_world():
+    """The world size of this process's default group (1 without one)."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
 
 def audit_graphs():
     """From here on, each program captured in this process (a train step
@@ -597,24 +653,32 @@ def audit_graphs():
     augment kernel as often as the capture counted
     (``Captured.dequant_launches``, ``augment_launches``), the launches
     each replay adds to ``preprocess.launches`` and ``augment_launches``.
+    On a mesh of more than one rank the graph must also hold one NCCL
+    kernel node for each collective its capture issued
+    (``Captured.collectives``, counted at the ``Mesh`` methods); NCCL's
+    one-rank path launches no kernel (an in-place reduce or broadcast is a
+    no-op, a gather one copy), so on a mesh of one it must hold none.
     A graph that differs fails the phase that captured it. Returns the
-    running tally {'graphs', 'dequant_nodes', 'augment_nodes', 'kinds':
-    {class name: graphs}, 'capture_s': {class name: seconds of warm-up
-    and capture}, 'dump_s': seconds of the audit's own dumps}; the audit
-    stays on."""
+    running tally {'graphs', 'dequant_nodes', 'augment_nodes',
+    'nccl_nodes', 'collectives', 'mesh_graphs' (graphs with collectives),
+    'kinds': {class name: graphs}, 'capture_s': {class name: seconds of
+    warm-up and capture}, 'dump_s': seconds of the audit's own dumps};
+    the audit stays on."""
     import warnings
 
     import torch
     from gltvae_torch.train import graphs
     tally = {'graphs': 0, 'dequant_nodes': 0, 'augment_nodes': 0,
+             'nccl_nodes': 0, 'collectives': 0, 'mesh_graphs': 0,
              'kinds': {}, 'capture_s': {}, 'dump_s': 0.0}
     dump = os.path.join(ROOT, 'build', 'graph_audit.dot')
     os.makedirs(os.path.dirname(dump), exist_ok=True)
 
-    def capture(fn, pool):
+    def capture(fn, pool, error_mode='global'):
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.enable_debug_mode()
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode=error_mode):
             out = fn()
         graph.instantiate()
         return graph, out
@@ -638,9 +702,20 @@ def audit_graphs():
                   f'and {nodes[1]} augment kernel nodes; its capture '
                   f'counted {self.dequant_launches} and '
                   f'{self.augment_launches}')
+            nccl = nccl_nodes(text)
+            want = self.collectives if mesh_world() > 1 else 0
+            check(nccl == want,
+                  f'a captured {kind}\'s graph holds {nccl} NCCL kernel '
+                  f'nodes; its capture issued {self.collectives} '
+                  f'collectives on a mesh of {mesh_world()} (expected '
+                  f'{want} nodes); its kernel names: '
+                  f'{sorted(set(_kernel_names(text)))[:12]}')
             tally['graphs'] += 1
             tally['dequant_nodes'] += nodes[0]
             tally['augment_nodes'] += nodes[1]
+            tally['nccl_nodes'] += nccl
+            tally['collectives'] += self.collectives
+            tally['mesh_graphs'] += self.collectives > 0
             tally['kinds'][kind] = tally['kinds'].get(kind, 0) + 1
             tally['capture_s'][kind] = (tally['capture_s'].get(kind, 0.0)
                                         + t1 - t)
@@ -649,6 +724,13 @@ def audit_graphs():
     patched(graphs, '_cuda_capture', lambda f: capture)
     patched(graphs.Captured, '_capture', audited)
     return tally
+
+
+def _kernel_names(text):
+    """The names in a graph's dump that look like kernels' (for a
+    failing audit's message)."""
+    import re
+    return re.findall(r'[A-Za-z_]\w*(?:[Kk]ernel|KERNEL)\w*', text)
 
 
 def audit_line(tally, n=41):
@@ -1540,10 +1622,11 @@ def augmented_run(label, model_cfg, train_cfg, splits, dev, run_name,
                 chunk_s=chunk_s, trainer=trainer)
 
 
-def one_steps(model_cfg, train_cfg, mu, batches, dev, mesh=None):
+def one_steps(model_cfg, train_cfg, mu, batches, dev, mesh=None, jit=None):
     """One sup step and one unsup step, each from the initial state, on
-    the global (x, y) `batches` (this rank's rows of them on a mesh): the
-    metrics and the state after each, and the initial params."""
+    the global (x, y) `batches` (this rank's rows of them on a mesh), the
+    makers' `jit`: the metrics and the state after each, and the initial
+    params."""
     import torch
     from gltvae_torch.parallel.dp import DataParallel, shard_state
     from gltvae_torch.train.state import create_train_state, init_model
@@ -1558,7 +1641,7 @@ def one_steps(model_cfg, train_cfg, mu, batches, dev, mesh=None):
             dp = DataParallel(mesh)
             x, y = x[mesh.rows(len(x))], y[mesh.rows(len(y))]
         p0 = {k: v.clone().cpu() for k, v in model.state_dict().items()}
-        steps = make_train_steps(model, train_cfg, dp)
+        steps = make_train_steps(model, train_cfg, dp, jit)
         _, m = steps[0 if sup else 1](state, torch.from_numpy(x).to(dev),
                                       torch.from_numpy(y).to(dev), 1.0)
         out.append(dict(metrics={k: float(v) for k, v in m.items()},
@@ -1646,9 +1729,11 @@ def dp_rank(rank, world, store, dev_name, model_cfg, train_cfg, splits,
         plain = train_and_test(f'rank {rank} resident', model_cfg,
                                train_cfg, splits, dev,
                                f'chip_smoke_dp/run{rank}', mesh=mesh)
+        # eager, so that its crops can be kept (gloo over CUDA tensors is
+        # eager anyway; a CPU mesh would crop inside its steps)
         aug = augmented_run(f'rank {rank} augmented', model_a, train_a,
                             splits_a, dev, f'chip_smoke_dp/aug{rank}',
-                            mesh=mesh)
+                            mesh=mesh, jit=False)
         agree = (replicas_agree(plain['trainer'].state, mesh),
                  replicas_agree(aug['trainer'].state, mesh))
         mu = cooccurrence_gating_matrix(splits['sup'].labels)
@@ -1697,41 +1782,54 @@ def dp_phases(dev, smi, ref5, model_cfg, train_cfg, splits, model_a,
         want = 'nccl' if dev.type == 'cuda' else 'gloo'
         check((mesh.world, mesh.backend, mesh.device) == (1, want, dev),
               f'mesh of one: {mesh}')
-        runs = [train_and_test(label, model_cfg, train_cfg, splits, dev,
-                               f'chip_smoke_mesh1_{i}', **kw)
-                for i, (label, kw) in enumerate((
-                    ('phase 5 again, deterministic', dict(jit=False)),
-                    ('mesh of one, deterministic', dict(mesh=mesh))))]
+        # each mode without and with the mesh: eager (jit=False) and
+        # captured (the default on one device and over NCCL)
+        runs = {(jit, on): train_and_test(
+                    f'{"mesh of one" if on else "phase 5 again"}, '
+                    f'{"captured" if jit else "eager"}, deterministic',
+                    model_cfg, train_cfg, splits, dev,
+                    f'chip_smoke_mesh1_{jit}_{on}', jit=jit,
+                    **(dict(mesh=mesh) if on else {}))
+                for jit in (False, True) for on in (False, True)}
     finally:
         pmesh.shutdown()
         torch.backends.cudnn.deterministic = deterministic
-    sds = [r['trainer'].state.state_dict() for r in runs]
-    differ = [f'{g}.{k}' for g in ('params', 'adam_m', 'adam_v')
-              for k, v in sds[0][g].items()
-              if not torch.equal(v, sds[1][g][k])]
     strip = lambda rows: [{k: v for k, v in r.items() if k != 'time'}
                           for r in rows]
-    check(not differ and strip(runs[1]['rows']) == strip(runs[0]['rows'])
-          and sds[0]['adam_count'] == sds[1]['adam_count'],
-          f'mesh of one != phase 5\'s run: {differ[:5]}')
-    launches = [r['launches'] for r in runs]
-    check(launches == [ref5['launches']] * 2,
+    for jit in (False, True):
+        pair = [runs[(jit, on)] for on in (False, True)]
+        check(all(r['trainer']._jit == jit for r in pair),
+              f'phase 30 jit={jit}: dispatches not as asked')
+        sds = [r['trainer'].state.state_dict() for r in pair]
+        differ = [f'{g}.{k}' for g in ('params', 'adam_m', 'adam_v')
+                  for k, v in sds[0][g].items()
+                  if not torch.equal(v, sds[1][g][k])]
+        check(not differ and strip(pair[1]['rows']) == strip(pair[0]['rows'])
+              and sds[0]['adam_count'] == sds[1]['adam_count'],
+              f'mesh of one != phase 5\'s run (jit={jit}): {differ[:5]}')
+    launches = {k: r['launches'] for k, r in runs.items()}
+    check(set(launches.values()) == {ref5['launches']},
           f'dequant launches {launches} != phase 5\'s {ref5["launches"]}')
-    gap5 = max(float((sds[0]['params'][k] - v).abs().max())
+    gap5 = max(float((runs[(True, False)]['trainer'].state.model
+                      .state_dict()[k].cpu() - v).abs().max())
                for k, v in ref5['state']['params'].items())
-    out['nccl_1'] = launches[1]
-    med = [statistics.median(r['step_s'][1:]) for r in runs]
+    out['nccl_1'] = launches[(True, True)]
+    med = {k: statistics.median(r['step_s'][1:]) for k, r in runs.items()}
     phase(30, f'mesh of one over {mesh.backend} on {mesh.device}: phase '
               f'5\'s run through Trainer(mesh=) equal to the same run '
               f'without a mesh bit for bit (params, Adam moments, '
-              f'{len(runs[1]["rows"])} metric rows; both on cuDNN\'s '
-              f'deterministic algorithms; vs phase 5 itself params max abs '
-              f'{gap5:.3e}, not held); dequant launches {launches[1]}')
-    print(f'slice_mesh1: step_ms median {med[1] * 1e3:.3f} with the mesh '
-          f'of one, {med[0] * 1e3:.3f} without (deterministic cuDNN; '
+              f'{len(runs[(True, True)]["rows"])} metric rows), captured '
+              f'against captured (the mesh\'s default over NCCL) and eager '
+              f'against eager, all on cuDNN\'s deterministic algorithms; '
+              f'vs phase 5 itself params max abs {gap5:.3e}, not held; '
+              f'dequant launches {launches[(True, True)]} in each run')
+    print(f'slice_mesh1: step_ms median captured {med[(True, True)] * 1e3:.3f}'
+          f' with the mesh of one, {med[(True, False)] * 1e3:.3f} without; '
+          f'eager {med[(False, True)] * 1e3:.3f} with, '
+          f'{med[(False, False)] * 1e3:.3f} without (deterministic cuDNN; '
           f'phase 5: {ref5["step_med"] * 1e3:.3f}; steps 2-16, '
           f'synchronized); card {smi}', flush=True)
-    del runs, sds
+    del runs
 
     # ------------------------------------------------------------- 31
     world = 2
@@ -2086,17 +2184,18 @@ def sweep_inputs(batch, eval_rows):
     return [make(batch), make(batch)], make(eval_rows)
 
 
-def sweep_evals(model_cfg, train_cfg, mu, eval_split, dev, mesh=None):
-    """A fresh Trainer's validation accuracy over `eval_split`, resident
-    (a mesh's ranks exchange rows, gather_rows) and shipped (each batch's
-    rows of this rank), with the matches gathered over the ranks
-    (``DataParallel.mean_rows``)."""
+def sweep_evals(model_cfg, train_cfg, mu, eval_split, dev, mesh=None,
+                jit=None):
+    """A fresh Trainer's (with `jit`) validation accuracy over
+    `eval_split`, resident (a mesh's ranks exchange rows, gather_rows)
+    and shipped (each batch's rows of this rank), with the matches
+    gathered over the ranks (``DataParallel.mean_rows``)."""
     from gltvae_torch.data.pipeline import ArrayDataset, BatchLoader
     from gltvae_torch.train.loop import Trainer
     out = {}
     for name, mode in (('resident', 'auto'), ('shipped', 'off')):
         tr = Trainer(model_cfg, train_cfg, mu_init=mu, device=dev,
-                     mesh=mesh, resident_eval=mode)
+                     mesh=mesh, resident_eval=mode, jit=jit)
         loader = BatchLoader(ArrayDataset(*eval_split), train_cfg.batch_size,
                              seed=0)
         out[name] = tr.evaluate(loader)
@@ -2110,8 +2209,9 @@ def sweep_rank(rank, world, url, devices, model_cfg, train_cfg, mu,
     """One rank of phase 37 on ``devices[rank]``: its own card over NCCL
     ('cuda:<rank>' with a tcp:// `url`), or over gloo on one shared device
     ('cuda:0' or 'cpu'). Checks dequant against plain at its rows' shape, then runs
-    ``one_steps`` at bf16 and f32 and ``sweep_evals``; saves what it
-    measured as <out_dir>/rank<r>.pt."""
+    ``one_steps`` at bf16 and f32 and ``sweep_evals`` eagerly, and on the
+    NCCL ranks once more captured (``jit=True``); saves
+    what it measured as <out_dir>/rank<r>.pt."""
     import dataclasses
 
     global ROOT
@@ -2121,9 +2221,13 @@ def sweep_rank(rank, world, url, devices, model_cfg, train_cfg, mu,
     import torch.distributed as dist
     from gltvae_torch.ops import preprocess
     from gltvae_torch.parallel import mesh as pmesh
+    from gltvae_torch.config import apply_precision
     dev = torch.device(devices[rank])
     nccl = dev.type == 'cuda' and dev.index == rank and world > 1 \
         and url.startswith('tcp')
+    # TF32 off from the first step (the Trainer's setting): every leg of
+    # every rank then runs the f32 convolutions alike
+    apply_precision(model_cfg)
     if dev.type == 'cpu':
         torch.set_num_threads(1)
         count_plain_calls()
@@ -2155,18 +2259,25 @@ def sweep_rank(rank, world, url, devices, model_cfg, train_cfg, mu,
         shape = tuple(u8.shape)
         del u8
         sync(dev)
-        preprocess.launches = 0
-        pairs = {dt: one_steps(dataclasses.replace(model_cfg,
-                                                   compute_dtype=dt),
-                               train_cfg, mu, batches, dev, mesh)
-                 for dt in ('bfloat16', 'float32')}
-        evals = sweep_evals(model_cfg, train_cfg, mu, eval_split, dev, mesh)
-        sync(dev)
-        launches = preprocess.launches
-        torch.save(dict(pairs=pairs, evals=evals, launches=launches,
-                        shape=shape, gathers=gathers[0],
-                        backend=mesh.backend),
+        legs = {}
+        for jit in ((False, True) if nccl else (False,)):
+            preprocess.launches = 0
+            pairs = {dt: one_steps(dataclasses.replace(model_cfg,
+                                                       compute_dtype=dt),
+                                   train_cfg, mu, batches, dev, mesh, jit)
+                     for dt in ('bfloat16', 'float32')}
+            evals = sweep_evals(model_cfg, train_cfg, mu, eval_split, dev,
+                                mesh, jit)
+            sync(dev)
+            legs[jit] = dict(pairs=pairs, evals=evals,
+                             launches=preprocess.launches)
+        torch.save(dict(legs[False], shape=shape, gathers=gathers[0],
+                        backend=mesh.backend,
+                        captured=legs.get(True)),
                    os.path.join(out_dir, f'rank{rank}.pt'))
+        if nccl:            # a rank that hangs leaving its group shows
+            print(f'[phase 37] rank {rank} of {world}: saved, leaving the '
+                  f'group', flush=True)
     finally:
         dist.all_gather_into_tensor = real
         pmesh.shutdown()
@@ -2195,9 +2306,11 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
                                            memory_rate)
     from gltvae_torch.train.state import create_train_state, init_model
     from gltvae_torch.train.steps import make_train_steps
+    from gltvae_torch.config import apply_precision
     cuda = dev.type == 'cuda'
     name, model_cfg, train_cfg = dp_sweep()[0]
     train_cfg = dataclasses.replace(train_cfg, batch_size=SWEEP_BATCH)
+    apply_precision(model_cfg)      # as the ranks and the Trainer
     B = SWEEP_BATCH
     batches, eval_split = sweep_inputs(B, SWEEP_EVAL_ROWS)
     mu = cooccurrence_gating_matrix(batches[0][1]).astype(np.float32)
@@ -2410,6 +2523,43 @@ def sweep_phase(dev, smi, world=None, timeout_s=600.0):
         check(results['nccl'][0]['evals'] == results['gloo'][0]['evals'],
               f'eval: nccl ranks {results["nccl"][0]["evals"]} != gloo '
               f'ranks {results["gloo"][0]["evals"]}')
+    if 'nccl' in results:
+        # the NCCL ranks' captured leg against their eager leg: the same
+        # per-rank arithmetic, but NCCL may pick another algorithm under
+        # capture, so past D = 2 the sum order can differ: bit-equal, or
+        # else phase 31's one-step rules with the gaps printed
+        nccl = results['nccl']
+        for dt in ('float32', 'bfloat16'):
+            same = all(
+                torch.equal(got['captured']['pairs'][dt][i]['state'][g][k],
+                            v)
+                for got in nccl for i in range(2)
+                for g in ('params', 'adam_m', 'adam_v')
+                for k, v in got['pairs'][dt][i]['state'][g].items()) and all(
+                got['captured']['pairs'][dt][i]['metrics']
+                == got['pairs'][dt][i]['metrics']
+                for got in nccl for i in range(2))
+            if same:
+                phase(37, f'{world} nccl ranks, {dt}: the captured leg '
+                          f'bit-equal to the eager leg on every rank '
+                          f'(params, Adam m and v, metrics)')
+            else:
+                for r, got in enumerate(nccl):
+                    report(f'{world} nccl ranks, rank {r}, {dt}: the '
+                           f'captured leg vs the eager leg, not bit-equal',
+                           dp_step_gaps([got['captured']['pairs'][dt]],
+                                        got['pairs'][dt], train_cfg),
+                           dict(metrics=1e-5, adam=2e-4))
+        evals = [got['captured']['evals'] for got in nccl]
+        check(all(e == nccl[0]['evals'] for e in evals)
+              and all(got['captured']['launches'] == want for got in nccl),
+              f'nccl ranks: captured evals {evals} != eager '
+              f'{nccl[0]["evals"]}, or dequant launches '
+              f'{[g["captured"]["launches"] for g in nccl]} (expected '
+              f'{want}, counted at the replays)')
+        phase(37, f'{world} nccl ranks: the captured evals equal the eager '
+                  f'ones ({evals[0]}); {want} dequant launches a rank in '
+                  f'each leg')
     gap = abs(ranks[0]['evals']['resident'] - ref_eval['resident'])
     check(gap <= 1e-3 and ref_eval['resident'] == ref_eval['shipped'],
           f'eval on the ranks {ranks[0]["evals"]} vs one process '
@@ -2760,13 +2910,23 @@ DP_CLI_ACC_TOL = 0.02
 #: card, after the first of each kind has planned its cuDNN algorithms
 DP_CLI_PROFILE = (4, 8)
 SCRIPT = os.path.abspath(__file__)
+#: the step wall (ms) of phase 39's CLI when its mesh dispatches were
+#: eager, at D ranks on four NVIDIA H100 80GB HBM3 cards at 700.00 W
+#: (PERF.md section 3), printed beside the captured one
+EAGER_DP_CLI_STEP_MS = {1: 19.667, 2: 18.386, 4: 19.174}
 
 
-def dp_cli_worlds(cards, sweep):
-    """Phase 39's rank counts: a mesh of one (one torchrun rank over NCCL)
+def dp_cli_worlds(cards, sweep, given=None):
+    """Phase 39's and 42's rank counts: a mesh of one (one rank over NCCL)
     on a run of the whole script; with ``--sweep-only`` and 2 or more cards
     also 2 and min(cards, 4) ranks, one a card (NCCL refuses two ranks on
-    one card, so never more ranks than cards)."""
+    one card, so never more ranks than cards), or the counts `given`
+    (``--worlds``, comma-separated)."""
+    if sweep and given:
+        worlds = sorted({int(w) for w in given.split(',')})
+        check(worlds[0] >= 1 and worlds[-1] <= cards,
+              f'--worlds {given} on {cards} card(s)')
+        return worlds
     if not sweep or cards < 2:
         return [1]
     return sorted({1, 2, min(cards, 4)})
@@ -3178,6 +3338,12 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
                   f'{ref_result["test_accuracy"]:.4f} (tol '
                   f'{DP_CLI_ACC_TOL})')
         print(dp_cli_line(f'{world} rank(s)', speed, smi), flush=True)
+        mode = 'captured' if world == 1 else 'eager (the CLI\'s default ' \
+            'past one rank)'
+        print(f'  the step wall {mode} {speed["step_wall_ms"]:.3f} ms; '
+              f'eager (recorded, four cards) '
+              f'{EAGER_DP_CLI_STEP_MS.get(world, float("nan")):.3f} ms',
+              flush=True)
 
         # infer --mesh on this run's checkpoint, held row for row to one
         # process labelling as many rows a call as each card does (the same
@@ -3322,46 +3488,55 @@ def graph_batches(image_size, y_dim, n, dev, seed=40):
 
 
 def train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev, how,
-              sizes=None):
-    """The steps `kinds` (True: sup) on device `batches` at the gating
-    temperatures `temps` from a fresh initial state, run `how`:
-    'eager' (``make_train_steps(jit=False)``; a padded batch cropped first
-    by the augment kernel with the step's draws, the Trainer's eager
-    order), 'steps' (captured single steps), 'chunks' (captured chunks of
-    `sizes` steps over stacked shipped batches, ``mixed_chunk``) or
-    'resident' (the same over rows of two device-resident splits, the sup
-    and the unsup batches, ``make_resident_mixed_scan_train_step``).
-    Returns the final state, each step's metrics on the host and the
-    (dequant, augment) launches counted."""
+              sizes=None, mesh=None):
+    """The steps `kinds` (True: sup) on the global device `batches` at the
+    gating temperatures `temps`, from a fresh initial state (rank 0's on
+    every rank of a `mesh`, each rank taking its rows of each batch), run
+    `how`: 'eager' (``make_train_steps(jit=False)``), 'steps' (captured
+    single steps), 'chunks' (captured chunks of `sizes` steps over stacked
+    shipped batches, ``make_mixed_scan_train_step``), 'resident' (the same
+    over rows of two device-resident splits, the sup and the unsup
+    batches, ``make_resident_mixed_scan_train_step``; on a mesh this
+    rank's rows of each, exchanged through ``gather_rows``), 'shardmap' or
+    'shardmap_eager' (``make_shardmap_train_steps``, captured or not; a
+    mesh only). A padded batch is cropped by the augment kernel inside
+    the step or chunk. Returns the final state, each step's metrics on the
+    host, the (dequant, augment) launches counted and, of a chunk leg, the
+    static crop draws of its last chunk."""
     import torch
     from gltvae_torch.ops import preprocess
-    from gltvae_torch.train.state import create_train_state, init_model
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.parallel.shardmap import make_shardmap_train_steps
     from gltvae_torch.train import steps as ts
+    from gltvae_torch.train.state import create_train_state, init_model
     model = init_model(model_cfg, train_cfg, mu, dev)
     state = create_train_state(model, train_cfg)
-    crop = ts.train_crop(model, train_cfg)
+    dp = None
+    if mesh is not None:
+        shard_state(state, mesh)
+        dp = DataParallel(mesh)
+    jit = how not in ('eager', 'shardmap_eager')
     sync(dev)
     launches0 = preprocess.launches, preprocess.augment_launches
-    mets = []
-    if how in ('eager', 'steps'):
-        steps = ts.make_train_steps(model, train_cfg, jit=how == 'steps')
+    mets, draws = [], None
+    if how in ('eager', 'steps', 'shardmap', 'shardmap_eager'):
+        fns = (make_shardmap_train_steps(model, train_cfg, mesh, jit)
+               if how.startswith('shardmap') else
+               ts.make_train_steps(model, train_cfg, dp, jit))
         for (x, y), sup, temp in zip(batches, kinds, temps):
-            if how == 'eager' and crop is not None \
-                    and crop.takes(x.shape, x.dtype):
-                x = preprocess.fused_augment_given(
-                    x, *crop.draw(state.step, len(x), dev), crop.size)
-            mets.append(steps[0 if sup else 1](state, x, y, temp)[1])
+            mets.append(fns[0 if sup else 1](
+                state, _rank_rows(x, mesh), _rank_rows(y, mesh), temp)[1])
     else:
-        chunk = (ts.make_resident_mixed_scan_train_step if how == 'resident'
-                 else ts.make_mixed_scan_train_step)(model, train_cfg,
-                                                     jit=True)
         B = len(batches[0][0])
         split = {k: [b for b, s in zip(batches, kinds) if s == k]
                  for k in (True, False)}
-        res = {k: (torch.cat([x for x, _ in v]), torch.cat([y for _, y in v]))
+        res = {k: (_rank_rows(torch.cat([x for x, _ in v]), mesh),
+                   torch.cat([y for _, y in v]))
                for k, v in split.items() if v}
-        rows = {True: 0, False: 0}
-        i = 0
+        fns = (ts.make_resident_mixed_scan_train_step if how == 'resident'
+               else ts.make_mixed_scan_train_step)(model, train_cfg, dp,
+                                                   jit=True)
+        rows, i = {True: 0, False: 0}, 0
         for n in sizes:
             mask, temp = kinds[i:i + n], temps[i]
             check(temps[i:i + n] == [temp] * n,
@@ -3373,22 +3548,28 @@ def train_leg(model_cfg, train_cfg, mu, batches, kinds, temps, dev, how,
                                              device=dev))
                     rows[m] += 1
                 empty = (torch.empty(0, device=dev),) * 2
-                _, ms = chunk(state, *res.get(True, empty),
-                              *res.get(False, empty), torch.stack(idxs),
-                              mask, temp)
+                _, ms = fns(state, *res.get(True, empty),
+                            *res.get(False, empty), torch.stack(idxs), mask,
+                            temp)
             else:
-                part = batches[i:i + n]
-                _, ms = chunk(state, torch.stack([x for x, _ in part]),
-                              torch.stack([y for _, y in part]), mask, temp)
+                xs, ys = (torch.stack([_rank_rows(b[k], mesh)
+                                       for b in batches[i:i + n]])
+                          for k in (0, 1))
+                _, ms = fns(state, xs, ys, mask, temp)
             mets += [{k: v[j] for k, v in ms.items()} for j in range(n)]
             i += n
+        last = tuple(kinds[i - sizes[-1]:i])
+        chunk = next((c for key, c in getattr(fns, 'chunks', {}).items()
+                      if key[0] == last and c.crop_draws is not None), None)
+        if chunk is not None:
+            draws = tuple(d.cpu() for d in chunk.crop_draws)
     sync(dev)
     out = dict(state=state.state_dict(),
                launches=(preprocess.launches - launches0[0],
                          preprocess.augment_launches - launches0[1]),
                metrics=[{k: v.detach().float().cpu() for k, v in m.items()}
-                        for m in mets])
-    del model, state, mets
+                        for m in mets], crop_draws=draws)
+    del model, state, mets, fns
     return out
 
 
@@ -3680,7 +3861,7 @@ def eval_splits(model_cfg, dev, rows=None, seed=41):
                  np.float32)).to(dev)) for _ in range(2)]
 
 
-def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
+def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4, mesh=None):
     """Phase 41 (a): the eval and ELBO passes of one model over `splits`
     [(images u8, labels f32) on `dev`, whole batches of BATCH rows],
     eagerly (``jit=False``) and captured, each leg from a fresh eval
@@ -3691,11 +3872,16 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
     captures, the others replay). Returns whether every value and the
     generator's final state are bit-equal, the largest gap, and each
     leg's dequant launches beside the batches it passed; and whether
-    draws into static slices (``out=``) equal fresh draws."""
+    draws into static slices (``out=``) equal fresh draws. On a `mesh`
+    (phase 42) the makers are the data-parallel ones: each resident split
+    is this rank's rows of it, each chunk this rank's rows of its
+    batches, the draws and values the global batch's."""
     import torch
     from gltvae_torch.ops import preprocess
+    from gltvae_torch.parallel.dp import DataParallel
     from gltvae_torch.train import steps as ts
     from gltvae_torch.train.state import init_model, step_seed
+    dp = None if mesh is None else DataParallel(mesh)
     model = init_model(model_cfg, train_cfg, mu, dev)
     temp = train_cfg.gating_temp_for(model_cfg) * 0.99
     g = torch.Generator(device=dev).manual_seed(41)
@@ -3707,7 +3893,8 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
                                                 splits[0][1].shape[1])
     legs = {}
     for jit in (False, True):
-        make = {name: getattr(ts, f'make_{name}')(model, train_cfg, jit=jit)
+        make = {name: getattr(ts, f'make_{name}')(model, train_cfg, dp,
+                                                  jit=jit)
                 for name in ('resident_eval_step', 'resident_elbo_step',
                              'scan_eval_step', 'scan_elbo_step')}
         gen = torch.Generator(device=dev)
@@ -3717,17 +3904,18 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
         vals, batches = [], 0
         for _ in range(2):
             for (images, labels), idxs in zip(splits, orders):
+                mine = _rank_rows(images, mesh)
                 vals.append(make['resident_eval_step'](
-                    model, images, labels, idxs, gen, temp))
-                vals.append(make['resident_elbo_step'](model, images, idxs,
+                    model, mine, labels, idxs, gen, temp))
+                vals.append(make['resident_elbo_step'](model, mine, idxs,
                                                        gen, temp))
                 batches += 2 * len(idxs)
             for i in range(0, len(xs), n):
-                vals.append(make['scan_eval_step'](
-                    model, xs[i:i + n], ys[i:i + n], gen, temp))
-                vals.append(make['scan_elbo_step'](model, xs[i:i + n], gen,
+                xc, yc = (_rank_rows(a[i:i + n], mesh, 1) for a in (xs, ys))
+                vals.append(make['scan_eval_step'](model, xc, yc, gen,
                                                    temp))
-                batches += 2 * len(xs[i:i + n])
+                vals.append(make['scan_elbo_step'](model, xc, gen, temp))
+                batches += 2 * len(xc)
         sync(dev)
         legs[jit] = dict(vals=[v.cpu() for v in vals], gen=gen.get_state(),
                          launches=preprocess.launches - launches0,
@@ -3737,6 +3925,8 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
         torch.equal(a, b) for a, b in zip(eager['vals'], capt['vals']))
     gap = max(float((a - b).abs().max())
               for a, b in zip(eager['vals'], capt['vals']))
+    gap_rel = max(float(((a - b).abs() / a.abs().clamp_min(1e-6)).max())
+                  for a, b in zip(eager['vals'], capt['vals']))
     # a draw straight into a slice of a static buffer equals a fresh one
     draws_equal = True
     for draw in (lambda gen, out=None: ts.draw_eval_noise(model, BATCH, gen,
@@ -3753,7 +3943,8 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4):
                            for k in fresh)
         draws_equal &= torch.equal(a.get_state(), b.get_state())
     del model
-    return dict(equal=bool(equal), gap=gap, draws_equal=bool(draws_equal),
+    return dict(equal=bool(equal), gap=gap, gap_rel=gap_rel,
+                draws_equal=bool(draws_equal),
                 launches=(eager['launches'], capt['launches']),
                 batches=(eager['batches'], capt['batches']))
 
@@ -3812,13 +4003,17 @@ def unit_speed(unit, images, dev, depth=None):
     check(bool(torch.isfinite(out.float()).all()),
           'dispatch speed: a value is not finite')
     events = prof.key_averages()
-    device_ms = (sum(e.self_device_time_total for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    on_card = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = (sum(e.self_device_time_total for e in on_card)
                  / 1e3 / profiled) if cuda else float('nan')
+    nccl_ms = (sum(e.self_device_time_total for e in on_card
+                   if 'nccl' in e.key.lower()) / 1e3 / profiled
+               if cuda else float('nan'))
     launches = {e.key: e.count / profiled for e in events
                 if e.key in LAUNCH_APIS}
     wall_ms = statistics.median(walls) * 1e3
-    return dict(units=units, profiled=profiled,
+    return dict(units=units, profiled=profiled, nccl_ms=nccl_ms,
                 wall_ms=wall_ms, img_s=images / wall_ms * 1e3,
                 pipelined_ms=pipelined_ms,
                 pipelined_img_s=images / pipelined_ms * 1e3,
@@ -4197,6 +4392,493 @@ def dispatch_phase(dev, smi, audited=None):
     return out
 
 
+#: Phase 42: each process's kill (phase 39's), the chunk of (e)'s sweep
+#: steps, and the stochastic inference temperature of (c) (infer's
+#: default).
+MESH_GRAPHS_TIMEOUT = 600.0
+SPEED_CHUNK = (True, False, False, False)
+INFER_TEMP = 0.3
+
+
+def mesh_graph_cfgs():
+    """Phase 42's configurations, {name: (ModelConfig, TrainConfig)}:
+    phase 5's model ('plain'), phase 9's ('augment') and
+    ``config.dp_sweep()[0]`` at global batch SWEEP_BATCH ('sweep')."""
+    import dataclasses
+    from gltvae_torch.config import default_celeba64, dp_sweep
+    _, model_s, train_s = dp_sweep()[0]
+    return {'plain': default_celeba64(sup=0.5, n_epochs=2, batch_size=BATCH),
+            'augment': default_celeba64(sup=0.5, n_epochs=2,
+                                        batch_size=BATCH, augment_pad=4),
+            'sweep': (model_s, dataclasses.replace(train_s,
+                                                   batch_size=SWEEP_BATCH))}
+
+
+def _rank_rows(t, mesh, axis=0):
+    """This rank's rows of a global tensor on `axis` (all of them off a
+    mesh): contiguous, in rank order, as ``Mesh.rows``."""
+    if mesh is None:
+        return t
+    n = t.shape[axis] // mesh.world
+    return t.narrow(axis, mesh.rank * n, n)
+
+
+def mesh_infer_legs(model_cfg, train_cfg, mu, photos, dev, mesh):
+    """Phase 42 (c): ``infer.make_predict`` (``jit=False`` and captured)
+    over the batches of the JPEG folder `photos`, decoded as ``infer``
+    decodes them (DP_CLI_INFER_BS a batch, the wrap-around tail whole),
+    deterministic and stochastic (each batch's generator seeded as
+    ``infer --seed 0``), on one device (the global batch) and on the mesh
+    (this rank's rows, the probabilities gathered). Returns the
+    probabilities {(stochastic, 'device' or 'mesh', jit): [rows, y]} and
+    the dequant launches."""
+    import numpy as np
+    import torch
+    from gltvae_torch import infer as tinfer
+    from gltvae_torch.data.celeba import ImageFolderDataset, _SplitData
+    from gltvae_torch.data.pipeline import BatchLoader
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.parallel.dp import DataParallel
+    from gltvae_torch.train.state import init_model, step_seed
+    names = sorted(os.listdir(photos))
+    ds = ImageFolderDataset(photos, _SplitData(names, np.zeros((len(names),
+                                                                  1))),
+                            model_cfg.image_size)
+    loader = BatchLoader(ds, DP_CLI_INFER_BS, shuffle=False, num_workers=4)
+    it = iter(loader)
+    try:
+        batches = [torch.from_numpy(next(it)[0]).to(dev)
+                   for _ in range(loader.epoch_batches)]
+    finally:
+        it.close()
+    model = init_model(model_cfg, train_cfg, mu, dev).eval()
+    dp = DataParallel(mesh)
+    sync(dev)
+    launches0 = preprocess.launches
+    out = {}
+    for stochastic in (False, True):
+        for where, d in (('device', None), ('mesh', dp)):
+            for jit in (False, True):
+                predict = tinfer.make_predict(model, stochastic, INFER_TEMP,
+                                              d, jit)
+                probs = []
+                for b, x in enumerate(batches):
+                    g = torch.Generator(device=dev).manual_seed(
+                        step_seed(0, b))
+                    probs.append(predict(x if d is None
+                                         else _rank_rows(x, mesh), g))
+                out[(stochastic, where, jit)] = torch.cat(probs).cpu()
+                del predict
+    sync(dev)
+    return dict(probs=out, launches=preprocess.launches - launches0,
+                batches=len(batches), shape=tuple(batches[0].shape))
+
+
+def mesh_speed(cfgs, dev, mesh):
+    """Phase 42 (e) on this rank: ``config.dp_sweep()[0]``'s step (sup
+    and unsup alternating) and a chunk of SPEED_CHUNK's steps at the
+    global batch, this rank's rows, eager and captured, each timed by
+    ``unit_speed`` (its NCCL share too) after a first call (which
+    captures), with its peak memory above what was held before."""
+    import numpy as np
+    import torch
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.train import steps as ts
+    from gltvae_torch.train.state import create_train_state, init_model
+    model_cfg, train_cfg = cfgs['sweep']
+    B = train_cfg.batch_size
+    host = sweep_inputs(B, 0)[0]
+    mu = cooccurrence_gating_matrix(host[0][1]).astype(np.float32)
+    dev_rows = [(_rank_rows(torch.from_numpy(x), mesh).to(dev),
+                 _rank_rows(torch.from_numpy(y), mesh).to(dev))
+                for x, y in host]
+    cuda = dev.type == 'cuda'
+    out = {}
+    for label in ('step', 'chunk4'):
+        for mode in ('eager', 'captured'):
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+            model = init_model(model_cfg, train_cfg, mu, dev)
+            state = shard_state(create_train_state(model, train_cfg), mesh)
+            dp, jit = DataParallel(mesh), mode == 'captured'
+            if label == 'step':
+                fns = ts.make_train_steps(model, train_cfg, dp, jit)
+                turn = [0]
+
+                def unit():
+                    x, y = dev_rows[turn[0] % 2]
+                    fn = fns[turn[0] % 2]
+                    turn[0] += 1
+                    return fn(state, x, y, 1.0)[1]['loss']
+                images = B
+            else:
+                fns = ts.make_mixed_scan_train_step(model, train_cfg, dp,
+                                                    jit)
+                xs = torch.stack([dev_rows[i % 2][0]
+                                  for i in range(len(SPEED_CHUNK))])
+                ys = torch.stack([dev_rows[i % 2][1]
+                                  for i in range(len(SPEED_CHUNK))])
+                unit = lambda: fns(state, xs, ys, SPEED_CHUNK, 1.0)[1][
+                    'loss']
+                images = B * len(SPEED_CHUNK)
+            sync(dev)
+            t = time.perf_counter()
+            unit()
+            sync(dev)
+            first_ms = (time.perf_counter() - t) * 1e3
+            s = unit_speed(unit, images, dev)
+            peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2**20
+                    if cuda else 0.0)
+            out[(label, mode)] = dict(s, first_call_ms=first_ms,
+                                      peak_mib=peak, images=images)
+            del unit, fns, state, model
+    return out
+
+
+def dp_graphs_speed_record(world, label, mode, batch, dtype, per_rank, smi):
+    """Phase 42 (e)'s ``dp_graphs_speed:`` record of one dispatch from
+    each rank's ``mesh_speed`` entry: rank 0's first call, waited wall
+    (the median of synchronized dispatches) and back-to-back wall (the
+    mean of dispatches enqueued in a row) with their img/s at the global
+    batch; the device ms, NCCL ms and busy share of the rank with the
+    most device time; rank 0's host launches; the largest peak memory;
+    and the card."""
+    slow = max(range(len(per_rank)),
+               key=lambda r: (per_rank[r]['device_ms'], -r))
+    r0, s = per_rank[0], per_rank[slow]
+    return dict(phase=42, world=world, dispatch=label, mode=mode,
+                batch=batch, rows_per_rank=batch // world, dtype=dtype,
+                images=r0['images'], first_call_ms=r0['first_call_ms'],
+                wall_ms_median=r0['wall_ms'], img_s=r0['img_s'],
+                pipelined_ms=r0['pipelined_ms'],
+                pipelined_img_s=r0['pipelined_img_s'],
+                device_ms=s['device_ms'], device_rank=slow,
+                nccl_ms=s['nccl_ms'], busy=s['device_ms'] / r0['wall_ms'],
+                host_launches=r0['launches'],
+                host_launches_total=r0['launches_total'],
+                peak_mib=max(r['peak_mib'] for r in per_rank),
+                units=r0['units'], profiled_units=r0['profiled'], card=smi)
+
+
+def mesh_graphs_work(mesh, dev, cfgs, photos):
+    """Phase 42 (a)-(c) on this rank, on cuDNN's deterministic
+    algorithms: (a) phase 5's model, GRAPH_STEPS steps of the interleave
+    eagerly and captured as single steps, as chunks of CHUNK_SIZES
+    (shipped and resident) and as the shardmap steps (against their eager
+    form), and on a mesh of one also captured off the mesh; (b) the eval
+    and ELBO passes (``eval_legs``), stochastic and deterministic, and
+    phase 9's augmented steps and chunks, with the rank's crop draws
+    against its rows of one process's; (c) ``mesh_infer_legs``."""
+    import dataclasses
+
+    import torch
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.train.graphs import Crop
+    out = {}
+    model_cfg, train_cfg = cfgs['plain']
+    batches = graph_batches(model_cfg.image_size, model_cfg.y_dim,
+                            GRAPH_STEPS, dev)
+    mu = cooccurrence_gating_matrix(
+        torch.cat([y for _, y in batches]).cpu().numpy())
+    kinds = [i % 2 == 0 for i in range(GRAPH_STEPS)]
+    t0 = train_cfg.gating_temp_for(model_cfg)
+    temps = [t0 * (0.99 if i >= GRAPH_STEPS // 2 else 1.0)
+             for i in range(GRAPH_STEPS)]
+    legs = {how: (how, mesh) for how in ('eager', 'steps', 'chunks',
+                                          'resident', 'shardmap_eager',
+                                          'shardmap')}
+    pairs = {'steps': 'eager', 'chunks': 'eager', 'resident': 'eager',
+             'shardmap': 'shardmap_eager'}
+    if mesh.world == 1:
+        legs['no_mesh'] = ('steps', None)
+        pairs['no_mesh'] = 'steps'
+    runs = {name: train_leg(model_cfg, train_cfg, mu, batches, kinds, temps,
+                            dev, how, CHUNK_SIZES, m)
+            for name, (how, m) in legs.items()}
+    out['a'] = {k: compare_legs(runs[ref], runs[k]) for k, ref in
+                pairs.items()}
+    out['a_launches'] = {k: v['launches'] for k, v in runs.items()}
+    del runs, batches
+
+    # (b) eval and ELBO passes; the augmented steps and chunks
+    splits = eval_splits(model_cfg, dev)
+    mu_e = cooccurrence_gating_matrix(splits[0][1].cpu().numpy())
+    out['b_eval'] = {det: eval_legs(model_cfg, dataclasses.replace(
+        train_cfg, deterministic_eval=det), mu_e, splits, dev, mesh=mesh)
+        for det in (False, True)}
+    del splits
+    model_a, train_a = cfgs['augment']
+    pad_b = graph_batches(model_a.image_size + 2 * train_a.augment_pad,
+                          model_a.y_dim, 8, dev, seed=9)
+    mu_a = cooccurrence_gating_matrix(
+        torch.cat([y for _, y in pad_b]).cpu().numpy())
+    kinds_a = [i % 2 == 0 for i in range(8)]
+    runs = {how: train_leg(model_a, train_a, mu_a, pad_b, kinds_a, [1.0] * 8,
+                           dev, how, (4, 4), mesh)
+            for how in ('eager', 'steps', 'chunks')}
+    out['b_augment'] = {k: compare_legs(runs['eager'], runs[k])
+                        for k in ('steps', 'chunks')}
+    out['b_augment_launches'] = {k: v['launches'] for k, v in runs.items()}
+    # this rank's crops: its rows of one process's draws, step by step,
+    # and in the captured chunk's static draws (its last chunk, steps 4-7)
+    B = len(pad_b[0][0])
+    b = B // mesh.world
+    one = Crop(model_a.image_size, train_a.augment_pad, train_a.seed)
+    mine = Crop(model_a.image_size, train_a.augment_pad, train_a.seed,
+                mesh.rank, mesh.world)
+    rows = mesh.rows(B)
+    want = [tuple(d[rows].cpu() for d in one.draw(s, B, dev))
+            for s in range(8)]
+    crops_equal = all(torch.equal(g.cpu(), w) for s in range(8)
+                      for g, w in zip(mine.draw(s, b, dev), want[s]))
+    static = runs['chunks']['crop_draws']
+    crops_equal &= static is not None and all(
+        torch.equal(static[i], torch.stack([want[s][i] for s in
+                                            range(4, 8)]))
+        for i in range(3))
+    out['b_crops_equal'] = bool(crops_equal)
+    del runs, pad_b
+
+    # (c) inference
+    out['c'] = mesh_infer_legs(model_cfg, train_cfg, mu, photos, dev, mesh)
+    return out
+
+
+def mesh_graphs_rank(rank, world, url, devices, cfgs, photos, out_dir, root,
+                     batch):
+    """One rank of phase 42 on ``devices[rank]`` (its own card over NCCL;
+    gloo on the CPU): every program it captures audited
+    (``audit_graphs``), then ``mesh_graphs_work`` on cuDNN's
+    deterministic algorithms and ``mesh_speed`` on the default ones;
+    saves what it measured as <out_dir>/rank<r>.pt. `root` and `batch`
+    are the parent's ROOT and BATCH."""
+    global ROOT, BATCH
+    ROOT, BATCH = root, batch
+    sys.path.insert(0, ROOT)
+    import torch
+    from gltvae_torch.config import apply_precision
+    from gltvae_torch.ops import preprocess
+    from gltvae_torch.parallel import mesh as pmesh
+    dev = torch.device(devices[rank])
+    cuda = dev.type == 'cuda'
+    apply_precision(cfgs['plain'][0])       # TF32 off, as in training
+    if cuda:
+        torch.cuda.set_device(dev)
+        audited = audit_graphs()
+    else:
+        torch.set_num_threads(1)
+        count_plain_calls()
+        audited = None
+    pmesh.initialize_multihost(url, world, rank, device=dev,
+                               backend='nccl' if cuda else 'gloo')
+    try:
+        mesh = pmesh.create_mesh(dev)
+        check((mesh.rank, mesh.world, mesh.device) == (rank, world, dev)
+              and mesh.backend == ('nccl' if cuda else 'gloo'),
+              f'rank {rank}: mesh {mesh}')
+        preprocess.launches = preprocess.augment_launches = 0
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            out = mesh_graphs_work(mesh, dev, cfgs, photos)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        out['speed'] = mesh_speed(cfgs, dev, mesh)
+        out['audit'] = audited
+        out['backend'] = mesh.backend
+        torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+        if world > 1:       # a rank that hangs leaving its group shows
+            print(f'[phase 42] rank {rank} of {world}: saved, leaving the '
+                  f'group', flush=True)
+    finally:
+        pmesh.shutdown()
+
+
+def mesh_graphs_report(world, ranks, smi, cfgs, spawn_s):
+    """Phase 42's checks and lines for the ranks of one world (each
+    rank's ``mesh_graphs_rank`` result). On a mesh of one every captured
+    leg must equal its eager one (and the captured run off the mesh) bit
+    for bit; on more ranks a train leg that is not bit-equal is held to
+    ``F32_TOL`` with its gaps printed (NCCL may sum in another order under
+    capture), an eval value to 1e-5 relative. The inference probabilities
+    and the crops are held bit for bit everywhere. Returns rank 0's launch
+    counts and the speed records."""
+    import torch
+    tag = f'D = {world}'
+    B = cfgs['plain'][1].batch_size
+    for r, got in enumerate(ranks):
+        check(got['backend'] == ranks[0]['backend'], f'rank {r} backend')
+        for how, launches in got['a_launches'].items():
+            check(launches == (GRAPH_STEPS, 0),
+                  f'(a) {tag} rank {r} {how}: (dequant, augment) launches '
+                  f'{launches}, expected ({GRAPH_STEPS}, 0)')
+        for how, launches in got['b_augment_launches'].items():
+            want = (0, 2) if how == 'chunks' else (0, 8)
+            check(launches == want, f'(b) {tag} rank {r} augmented {how}: '
+                  f'(dequant, augment) launches {launches}, expected {want}')
+        check(got['b_crops_equal'], f'(b) {tag} rank {r}: its crops are '
+              f'not its rows of the one-process crops')
+    verdicts = []
+    for how, (equal, worst) in ranks[0]['a'].items():
+        for r, got in enumerate(ranks):
+            eq, w = got['a'][how]
+            if world == 1 or how == 'no_mesh':
+                check(eq, f'(a) {tag} {how}: captured != eager: '
+                      + hold_captured(f'(a) {how}', dict(equal=eq, worst=w),
+                                      {}))
+            else:
+                hold_captured(f'(a) {tag} rank {r} {how}',
+                              dict(equal=eq, worst=w), F32_TOL)
+        verdicts.append(f'{how}: ' + hold_captured(
+            f'(a) {tag} {how}', dict(equal=equal, worst=worst), F32_TOL))
+    phase(42, f'(a) {tag}, phase 5\'s model, {GRAPH_STEPS} steps of the '
+              f'interleave, captured against eager on the mesh (rank 0; '
+              f'every rank checked): {"; ".join(verdicts)}; dequant '
+              f'launches {GRAPH_STEPS} in every leg ({B // world} rows a '
+              f'rank); {ranks[0]["backend"]}')
+    for det in (False, True):
+        for r, got in enumerate(ranks):
+            res = got['b_eval'][det]
+            check(res['equal'] or (world > 1 and res['gap_rel'] <= 1e-5),
+                  f'(b) {tag} rank {r} deterministic={det}: captured '
+                  f'eval/ELBO differ from eager (max abs {res["gap"]:.3e}, '
+                  f'rel {res["gap_rel"]:.3e})')
+            check(res['launches'][0] == res['launches'][1]
+                  == res['batches'][0], f'(b) {tag} rank {r}: dequant '
+                  f'launches {res["launches"]} for {res["batches"]}')
+    aug = []
+    for how in ('steps', 'chunks'):
+        for r, got in enumerate(ranks):
+            eq, w = got['b_augment'][how]
+            label = f'(b) {tag} rank {r} augmented {how}'
+            if world == 1:
+                check(eq, f'{label}: captured != eager: ' + hold_captured(
+                    label, dict(equal=eq, worst=w), {}))
+            else:
+                hold_captured(label, dict(equal=eq, worst=w), F32_TOL)
+        aug.append(f'{how}: ' + hold_captured(
+            f'(b) augmented {how}', dict(zip(('equal', 'worst'),
+                                             ranks[0]['b_augment'][how])),
+            F32_TOL))
+    ev = ranks[0]['b_eval']
+    phase(42, f'(b) {tag}: eval and ELBO passes (resident epochs and '
+              f'chunks of 4, stochastic and deterministic) captured '
+              f'against eager: '
+              + ', '.join(f'{"deterministic" if d else "stochastic"} '
+                          f'{"bit-equal" if ev[d]["equal"] else "max rel %.3e" % ev[d]["gap_rel"]}'
+                          for d in (False, True))
+              + f' (values and the eval generator; dequant launches '
+              f'{ev[False]["launches"][1]} a leg, n a replay); phase 9\'s '
+              f'augmented steps and chunks of 4: {"; ".join(aug)}; '
+              f'augment launches 8 / 8 / 2 (eager, steps, chunks); each '
+              f'rank\'s crops its rows of the one-process crops')
+    c = ranks[0]['c']
+    for r, got in enumerate(ranks):
+        probs = got['c']['probs']
+        for stochastic in (False, True):
+            for where in ('device', 'mesh'):
+                check(torch.equal(probs[(stochastic, where, True)],
+                                  probs[(stochastic, where, False)]),
+                      f'(c) {tag} rank {r} stochastic={stochastic} '
+                      f'{where}: captured probabilities != eager')
+            if world == 1:
+                check(torch.equal(probs[(stochastic, 'mesh', True)],
+                                  probs[(stochastic, 'device', True)]),
+                      f'(c) {tag}: the mesh of one != one device '
+                      f'(stochastic={stochastic})')
+        check(got['c']['launches'] == 8 * got['c']['batches'],
+              f'(c) {tag} rank {r}: dequant launches {got["c"]["launches"]}')
+    gap = max(float((c['probs'][(s, 'mesh', True)]
+                     - c['probs'][(s, 'device', True)]).abs().max())
+              for s in (False, True))
+    phase(42, f'(c) {tag}: infer.make_predict over {c["batches"]} batches '
+              f'of {DP_CLI_INFER_BS} of {sum(DP_CLI_PHOTOS)} JPEGs, '
+              f'deterministic and stochastic, on one device and on the '
+              f'mesh: captured probabilities bit-equal to eager '
+              f'everywhere; mesh vs one device max |dp| {gap:.3e} '
+              f'({"held at 0" if world == 1 else "printed"}); dequant '
+              f'launches {c["launches"]} (one a call)')
+    audits = [got['audit'] for got in ranks if got['audit'] is not None]
+    if audits:
+        a = audits[0]
+        phase(42, f'(d) {tag}: every graph of every rank audited at its '
+                  f'capture; rank 0: {a["graphs"]} graphs ({a["kinds"]}), '
+                  f'{a["mesh_graphs"]} holding {a["collectives"]} '
+                  f'collectives and {a["nccl_nodes"]} NCCL kernel nodes'
+                  + (' (NCCL\'s one-rank path launches none)'
+                     if world == 1 else ' (one a collective)')
+                  + f', {a["dequant_nodes"]} dequant and '
+                  f'{a["augment_nodes"]} augment nodes, each as its '
+                  f'capture counted')
+    records = {}
+    model_s, train_s = cfgs['sweep']
+    for (label, mode) in ranks[0]['speed']:
+        rec = dp_graphs_speed_record(
+            world, f'{label} ({model_s.compute_dtype}, global batch '
+                   f'{train_s.batch_size})', mode, train_s.batch_size,
+            model_s.compute_dtype, [got['speed'][(label, mode)]
+                                    for got in ranks], smi)
+        records[f'{label}_{mode}'] = rec
+        print('dp_graphs_speed: ' + json.dumps(rec), flush=True)
+    return dict(launches=dict(a=ranks[0]['a_launches'],
+                              b_eval={str(d): v['launches']
+                                      for d, v in ev.items()},
+                              b_augment=ranks[0]['b_augment_launches'],
+                              c=c['launches']),
+                audit=ranks[0]['audit'], spawn_s=spawn_s, speed=records)
+
+
+def mesh_graphs_phase(dev, smi, worlds, cfgs=None,
+                      timeout_s=MESH_GRAPHS_TIMEOUT):
+    """Phase 42: gltvae's compiled mesh dispatches as CUDA graphs with
+    the NCCL collectives inside, at each of `worlds` ranks, one a card
+    (NCCL; gloo on the CPU), spawned with a kill after `timeout_s`:
+    ``mesh_graphs_rank`` on each, ``mesh_graphs_report`` of them. `cfgs`
+    defaults to ``mesh_graph_cfgs()``. Returns each world's report."""
+    import socket
+
+    import torch
+    from gltvae_torch.data.synthetic import write_celeba_corpus
+    from gltvae_torch.parallel import mesh as pmesh
+    t_phase = time.perf_counter()
+    cfgs = cfgs or mesh_graph_cfgs()
+    root = os.path.join(ROOT, 'build', 'chip_smoke_mesh_graphs')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    write_celeba_corpus(os.path.join(root, 'photos'), *DP_CLI_PHOTOS)
+    photos = os.path.join(root, 'photos', 'img_align_celeba')
+    cuda = dev.type == 'cuda'
+    out = {}
+    for world in worlds:
+        leg_dir = os.path.join(root, f'd{world}')
+        os.makedirs(leg_dir)
+        if cuda:
+            with socket.socket() as sk:     # a free port for the TCP store
+                sk.bind(('127.0.0.1', 0))
+                url = f'tcp://127.0.0.1:{sk.getsockname()[1]}'
+            devices = [f'cuda:{r}' for r in range(world)]
+        else:
+            url = f'file://{os.path.join(leg_dir, "store")}'
+            devices = ['cpu'] * world
+        t0 = time.perf_counter()
+        pmesh.spawn(mesh_graphs_rank, world,
+                    (url, devices, cfgs, photos, leg_dir, ROOT, BATCH),
+                    timeout_s)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(leg_dir, f'rank{r}.pt'),
+                            weights_only=False) for r in range(world)]
+        out[world] = mesh_graphs_report(world, ranks, smi, cfgs, spawn_s)
+        phase(42, f'D = {world}: {world} rank(s) over '
+                  f'{ranks[0]["backend"]}, {spawn_s:.1f} s with their '
+                  f'start; card {smi}')
+    out['wall_s'] = time.perf_counter() - t_phase
+    phase(42, f'phase 42 wall {out["wall_s"]:.1f} s (worlds {worlds})')
+    return out
+
+
 def main(argv=None):
     import argparse
     argv = sys.argv[1:] if argv is None else argv
@@ -4205,21 +4887,27 @@ def main(argv=None):
         dp_cli_rank(argv[1], argv[2 + profiled:], profiled)
         return 0
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-41; see the module text).')
+                                'GPU (phases 1-42; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
-                   help='phases 1-2, 37 and 39 only: the sweep in one '
+                   help='phases 1-2, 37, 39 and 42 only: the sweep in one '
                         'process and, with 2 or more cards, on min(cards, '
-                        '4) NCCL ranks; the data-parallel CLI on 1 rank '
-                        'and, with 2 or more cards, on 2 and min(cards, 4) '
-                        '(the four-card check)')
+                        '4) NCCL ranks; the data-parallel CLI and the '
+                        'captured mesh dispatches on 1 rank and, with 2 or '
+                        'more cards, on 2 and min(cards, 4) (the four-card '
+                        'check)')
+    p.add_argument('--worlds', default=None,
+                   help='with --sweep-only: the rank counts of phases 42 '
+                        'and 39, comma-separated (default 1, 2 and '
+                        'min(cards, 4); never more than the cards)')
     p.add_argument('--h2h-only', action='store_true',
                    help='phases 1-2, then the recorded head-to-head matrix '
                         'through the harness\'s port leg (13 runs of 12 '
                         'or 30 epochs on the 2,100-image parity corpus)')
     p.add_argument('--graphs-only', action='store_true',
-                   help='phases 1-2, 40 and 41 only: the captured train '
+                   help='phases 1-2, 40, 41 and 42 only: the captured train '
                         'steps, chunks, eval and ELBO passes and augmented '
-                        'steps against the eager ones, and their speed')
+                        'steps against the eager ones, and their speed, on '
+                        'one device and on a mesh of one')
     p.add_argument('--h2h-out', default=None,
                    help='with --h2h-only: a folder to copy the results, the '
                         'report and the walls into')
@@ -4278,13 +4966,18 @@ def main(argv=None):
             graphs = graphs_phase(dev, smi)
             dispatch = dispatch_phase(dev, smi, audited)
             audit_line(audited)
+            mesh_graphs = mesh_graphs_phase(dev, smi, [1])
             print(json.dumps({'graphs': graphs, 'dispatch': {
                 k: v for k, v in dispatch.items() if k != 'speed'},
-                'graphs_audited': audited}), flush=True)
+                'graphs_audited': audited, 'mesh_graphs': mesh_graphs}),
+                flush=True)
         if args.sweep_only:
+            worlds = dp_cli_worlds(count, True, args.worlds)
             sweep = sweep_phase(dev, smi)
-            dp_cli = dp_cli_phase(dev, smi, dp_cli_worlds(count, True))
-            print(json.dumps({'sweep': sweep, 'dp_cli': dp_cli}), flush=True)
+            mesh_graphs = mesh_graphs_phase(dev, smi, worlds)
+            dp_cli = dp_cli_phase(dev, smi, worlds)
+            print(json.dumps({'sweep': sweep, 'dp_cli': dp_cli,
+                              'mesh_graphs': mesh_graphs}), flush=True)
         if args.h2h_only:
             h2h_matrix(dev, smi, args.h2h_out)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
@@ -4789,6 +5482,10 @@ def main(argv=None):
     dispatch = dispatch_phase(dev, smi, audited)
     audit_line(audited)
 
+    # ------------------------------------------------------------- 42
+    mesh_graphs = mesh_graphs_phase(dev, smi, [1])
+    mesh1 = mesh_graphs[1]['launches']
+
     # ------------------------------------------------------------- out
     record = {'kernels': [{
         'name': 'dequant',
@@ -4866,6 +5563,13 @@ def main(argv=None):
         'launches_dispatch_chunks': dispatch['chunks'],
         'launches_dispatch_trainer': dispatch['trainer'],
         'graphs_audited': audited,
+        # phase 42: on a mesh of one over NCCL, counted at the replays:
+        # each train leg of (a) (16 steps), the eval and ELBO passes of
+        # (b) (eager, captured), inference (c); the ranks' graph audit
+        'launches_mesh_graphs_train': mesh1['a'],
+        'launches_mesh_graphs_eval': mesh1['b_eval'],
+        'launches_mesh_graphs_infer': mesh1['c'],
+        'mesh_graphs_audited': mesh_graphs[1]['audit'],
     }, {
         'name': 'augment',
         'route': 'cuda',
@@ -4889,6 +5593,9 @@ def main(argv=None):
         # (d) the augmented Trainer captured and eager (augment, dequant)
         'launches_dispatch_augment': dispatch['augment'],
         'launches_dispatch_trainer_augment': dispatch['trainer_augment'],
+        # phase 42 (b): the augmented steps on a mesh of one, (dequant,
+        # augment) eager, per-step replays, chunk replays
+        'launches_mesh_graphs_augment': mesh1['b_augment'],
     }]}
     print(json.dumps(record), flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu',

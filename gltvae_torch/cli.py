@@ -31,6 +31,9 @@ cpu``): started by ``torchrun``, or once per rank with the three
 ``--dist-*`` flags (all or none); either makes a run with more than one
 process a mesh run. The global batch is ``-bs``; each rank's loaders are
 host-sharded and decode only its rows; rank 0 writes the run's files.
+On an NCCL mesh of one rank every dispatch is a CUDA graph with its
+collectives inside, as on one device (``train/graphs.py``); on more
+ranks the dispatches are eager (``train/steps.py::resolve_jit``).
 
 It takes train.py's flags but ``--prng`` and the compilation-cache flags;
 ``--device`` stands for ``--platform``.
@@ -393,8 +396,9 @@ def main(argv=None):
         mesh = make_mesh(args)
         results = {sup: run(args, sup, mesh) for sup in args.sup}
     finally:
-        if owned and dist.is_initialized():
-            dist.destroy_process_group()
+        if owned:
+            from gltvae_torch.parallel.mesh import shutdown
+            shutdown()
     logger.info('sweep results: %s', results)
     return results
 

@@ -19,7 +19,10 @@ decodes them (a direct resize at 64 px, a center crop at 128 px) on
 divide form on the device and the model's ``predict_probs``: posterior
 mean and expected gates by default, sampled z and gates at ``--temp`` with
 ``--stochastic``. The CSV has ``image_id``, one 0/1 column per attribute
-(1 iff p > 0.5) and one ``p_<attribute>`` column (``%.4f``).
+(1 iff p > 0.5) and one ``p_<attribute>`` column (``%.4f``). On a CUDA
+device the forward is one CUDA graph a batch (``make_predict``), on an
+NCCL mesh of one rank with its gather inside (of more ranks, eager:
+``steps.resolve_jit``).
 
 ``--mesh`` labels data-parallel over the ranks of a process group (run
 under ``torchrun --nproc-per-node=N``; one process is a mesh of one):
@@ -42,6 +45,7 @@ import dataclasses
 import glob
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -140,20 +144,67 @@ def load_model(args, cfg, device):
     return model.to(device).eval()
 
 
-def make_predict(model, stochastic: bool, temp: float):
+def make_predict(model, stochastic: bool, temp: float, dp=None,
+                 jit: Optional[bool] = None):
     """predict(x_u8, generator=None, noise=None) -> probabilities [B, y]:
     the dequant kernel's divide form, then ``predict_probs`` (the shared
     eval protocol). The stochastic draws come from `generator`, or from
-    `noise` (eps_z, g1, g2) when given."""
+    `noise` (eps_z, g1, g2) when given. With `dp` (a ``parallel.dp.
+    DataParallel``), x_u8 is this rank's rows of a global batch, the draws
+    are the global batch's (`noise` too) of which the rank keeps its rows,
+    and the probabilities of the global batch come back, gathered over the
+    ranks in rank order.
+
+    Captured by ``train/steps.py``'s rule (``resolve_jit``; tools/infer.py
+    jits its forward on one device and on the mesh): the forward, with the
+    gather on a mesh, is a CUDA graph over a static uint8 batch, one a
+    batch shape (the wrap-around tail batch keeps the one shape), and the
+    draws go into its static buffers; on the CPU the same static-buffer
+    path runs eagerly. ``jit=False`` gives the eager forward."""
     from gltvae_torch.models.ccvae import Temps
     from gltvae_torch.ops.preprocess import dequant
+    from gltvae_torch.train.graphs import CapturedPass, graph_pool
+    from gltvae_torch.train.steps import draw_eval_noise, resolve_jit
+    world = 1 if dp is None else dp.mesh.world
+    temps = Temps(gating=temp)
 
-    @torch.no_grad()
-    def predict(x_u8, generator=None, noise=None):
+    def forward(x_u8, noise, generator=None):
+        """The device part: `noise` the global batch's draws, or None."""
         x = dequant(x_u8, 'div')
-        return model.predict_probs(x, Temps(gating=temp),
-                                   deterministic=not stochastic,
-                                   noise=noise, generator=generator)
+        if noise is not None and dp is not None:
+            noise = dp.rows_of(noise)
+        probs = model.predict_probs(x, temps, deterministic=not stochastic,
+                                    noise=noise, generator=generator)
+        return probs if dp is None else dp.mesh.all_gather(probs)
+
+    if not resolve_jit(jit, dp):
+        @torch.no_grad()
+        def predict(x_u8, generator=None, noise=None):
+            if stochastic and noise is None and dp is not None:
+                noise = draw_eval_noise(model, len(x_u8) * world, generator)
+            return forward(x_u8, noise, generator)
+        return predict
+
+    device = model.mu.device
+    pool = graph_pool(device)
+    passes = {}
+
+    def predict(x_u8, generator=None, noise=None):
+        key = (tuple(x_u8.shape), x_u8.dtype)
+        p = passes.get(key)
+        if p is None:
+            p = passes[key] = CapturedPass(
+                lambda model, x, y, t, noise: forward(x, noise), 1,
+                ((1,) + key[0], key[1]), None, device, pool,
+                stochastic=stochastic, dp=dp)
+        p.check(model)
+        p.load(x_u8[None], None)
+        if stochastic:
+            if noise is None:
+                noise = draw_eval_noise(model, p.batch, generator,
+                                        out=p.noise.out(0))
+            p.noise.fill(0, noise)
+        return p(model)['value'][0]
     return predict
 
 
@@ -180,8 +231,9 @@ def main(argv=None):
     try:
         return label(args)
     finally:
-        if owned and dist.is_initialized():
-            dist.destroy_process_group()
+        if owned:
+            from gltvae_torch.parallel.mesh import shutdown
+            shutdown()
 
 
 def label(args):
@@ -222,7 +274,7 @@ def label(args):
         else None
     loader = BatchLoader(ds, args.batch_size, shuffle=False,
                          num_workers=args.num_workers, shard=shard)
-    predict = make_predict(model, args.stochastic, args.temp)
+    predict = make_predict(model, args.stochastic, args.temp, dp)
     labels = attribute_names(cfg.y_dim)
     writes = mesh is None or mesh.is_main
     t0 = time.perf_counter()
@@ -234,15 +286,11 @@ def label(args):
             w.writerow(['image_id'] + labels + [f'p_{n}' for n in labels])
             for b in range(loader.epoch_batches):
                 x, _ = next(it)
-                gen = noise = None
+                gen = None
                 if args.stochastic:
                     gen = torch.Generator(device=device)
                     gen.manual_seed(step_seed(args.seed, b))
-                    if dp is not None:
-                        noise = dp.eval_noise(model, len(x), gen)
-                probs = predict(torch.from_numpy(x).to(device), gen, noise)
-                if mesh is not None:
-                    probs = mesh.all_gather(probs)
+                probs = predict(torch.from_numpy(x).to(device), gen)
                 lo = b * args.batch_size
                 batch_names = names[lo:lo + args.batch_size]
                 write_rows(w, batch_names,

@@ -31,6 +31,17 @@ chunk, resident, eval and ELBO makers. With it
   rank writes the rows it holds), so the bytes equal the host-shipped
   batches'.
 
+The makers capture these steps as they do one device's (gltvae jits its
+parallel makers; ``steps.resolve_jit``'s rule): over NCCL each rank's
+dispatch is one CUDA graph with its collectives inside
+(``train/graphs.py``). For that the host part
+(``draws``; an eval or ELBO pass's ``steps.draw_eval_noise`` and
+``draw_noise`` with ``out=``) draws the global batch's noise into
+global-size static buffers, and the device part reads this rank's rows
+as views (``rows_of``); ``average``,
+``mean``, ``mean_rows`` and ``gather_rows`` read nothing back to the
+host, so they run inside the graph as they are.
+
 Batches arrive by one of two conventions (``shard_batch``,
 ``shard_stacked_batch``): ``local=False``, every rank gets the global batch
 and keeps its rows; ``local=True``, a host-sharded loader
@@ -45,7 +56,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from gltvae_torch.ops.sampling import sample_gumbel
 from gltvae_torch.parallel.mesh import Mesh
 from gltvae_torch.train.state import TrainState
 from gltvae_torch.train import steps as _steps
@@ -72,31 +82,24 @@ class DataParallel:
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
 
-    def local_noise(self, state: TrainState, b: int, supervised: bool,
-                    k: int, noise: Optional[dict] = None) -> dict:
-        """This rank's rows of the step's global draws: `noise` when given
-        (the global batch's), else drawn from the step's generator."""
+    def draws(self, state: TrainState, b: int, supervised: bool, k: int,
+              noise: Optional[dict] = None, out: Optional[dict] = None
+              ) -> dict:
+        """What a step's host part draws: the global batch's draws for `b`
+        rows a rank, `noise` when given, else drawn from the step's
+        generator (into `out`, buffers of the global shapes, when
+        given)."""
         if noise is None:
             noise = _steps.draw_noise(state.model, b * self.mesh.world,
-                                      supervised, k, state.next_generator())
-        return slice_noise(noise, self.mesh.rows(b * self.mesh.world))
+                                      supervised, k, state.next_generator(),
+                                      out=out)
+        return noise
 
-    def eval_noise(self, model, b: int, generator: torch.Generator) -> dict:
-        """This rank's rows of one eval batch's draws, in the order
-        ``predict_probs`` draws them: z's normals, then the gate Gumbels."""
-        n = b * self.mesh.world
-        dev = model.mu.device
-        eps_z = torch.randn((n, model.cfg.z_dim), generator=generator,
-                            device=dev)
-        g1 = sample_gumbel(model.mu.shape, generator, device=dev)
-        g2 = sample_gumbel(model.mu.shape, generator, device=dev)
-        return {'eps_z': eps_z[self.mesh.rows(n)], 'g1': g1, 'g2': g2}
-
-    def elbo_noise(self, model, b: int, generator: torch.Generator) -> dict:
-        """This rank's rows of one ELBO batch's draws (``unsup_loss``'s)."""
-        n = b * self.mesh.world
-        return slice_noise(_steps.draw_noise(model, n, False, 0, generator),
-                           self.mesh.rows(n))
+    def rows_of(self, noise: dict) -> dict:
+        """This rank's rows of `draws`' result, as views (what the device
+        part reads)."""
+        n = noise['eps_z'].shape[0]
+        return slice_noise(noise, self.mesh.rows(n))
 
     def average(self, grads: Dict[str, torch.Tensor],
                 metrics: Dict[str, torch.Tensor]
@@ -141,6 +144,24 @@ class DataParallel:
             return [(x, None) for x in xs]
         mine = idxs[:, self.mesh.rows(idxs.shape[1])]
         return [(x, labels.index_select(0, i)) for x, i in zip(xs, mine)]
+
+    def step_batches(self, sources, idxs) -> List[tuple]:
+        """This rank's (x, y) of each step j, rows idxs[j] of the resident
+        split sources[j] = (rows, labels): one exchange a split
+        (``resident_batches``), in the order of the splits' first steps
+        (the row gather of a resident program, ``graphs.index_rows`` on
+        one device)."""
+        groups = {}
+        for j, src in enumerate(sources):
+            groups.setdefault(id(src[0]), []).append(j)
+        out = [None] * len(sources)
+        for js in groups.values():
+            images, labels = sources[js[0]]
+            got = self.resident_batches(
+                images, labels, torch.stack([idxs[j] for j in js]))
+            for j, batch in zip(js, got):
+                out[j] = batch
+        return out
 
 
 def shard_state(state: TrainState, mesh: Mesh) -> TrainState:

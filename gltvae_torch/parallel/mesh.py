@@ -20,11 +20,21 @@ holding this rank's block: exact for every value but -0.0, which comes
 back +0.0 (the gathered rows are uint8 images, 0/1 matches and
 probabilities, none of which is -0.0). NCCL refuses two ranks on one GPU,
 so ranks that share a card use gloo.
+
+The collectives read nothing back to the host, so on NCCL they run
+inside a CUDA graph (``capturable``; train/graphs.py captures the
+data-parallel dispatches with them), once an eager collective has made
+the group's communicator. A graph cannot hold gloo's trip through host
+memory, so a gloo mesh over CUDA tensors runs eagerly. ``collectives``
+counts the collective calls made through a ``Mesh`` in this process (one
+a backend call; a capture's recording is one, a graph's replay makes
+none), so that a capture can say how many its graph holds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import time
 from typing import Callable, Optional, Sequence
@@ -35,6 +45,15 @@ import torch.distributed as dist
 from gltvae_torch import resolve_device
 
 DATA_AXIS = 'data'
+
+#: Collective calls made through a ``Mesh`` with a group in this process
+#: (one a backend call; a gloo ``all_gather`` is its one ``all_reduce``).
+collectives = 0
+
+
+def _issued() -> None:
+    global collectives
+    collectives += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +71,14 @@ class Mesh:
         """Rank 0 writes the run's files; the others pass a barrier."""
         return self.rank == 0
 
+    @property
+    def capturable(self) -> bool:
+        """Whether this rank's collectives can run inside a CUDA graph:
+        NCCL's can (with the communicator made by an eager collective
+        first), and so can a world of 1 with no group (no collective).
+        Gloo's cannot: it moves CUDA tensors through host memory."""
+        return self.backend in (None, 'nccl')
+
     def rows(self, n: int) -> slice:
         """This rank's contiguous rows of `n` global rows, in rank order."""
         if n % self.world:
@@ -64,6 +91,7 @@ class Mesh:
     def all_reduce_(self, t: torch.Tensor, op: str = 'sum') -> torch.Tensor:
         """In place over the ranks ('sum' or 'max'); a no-op with no group."""
         if self.group is not None:
+            _issued()
             dist.all_reduce(t, {'sum': dist.ReduceOp.SUM,
                                 'max': dist.ReduceOp.MAX}[op],
                             group=self.group)
@@ -72,6 +100,7 @@ class Mesh:
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `t` on every rank, in place."""
         if self.group is not None:
+            _issued()
             dist.broadcast(t, src, group=self.group)
         return t
 
@@ -85,6 +114,7 @@ class Mesh:
             out[self.rows(out.shape[0])] = t
             return self.all_reduce_(out)
         out = t.new_empty((self.world * t.shape[0],) + t.shape[1:])
+        _issued()
         dist.all_gather_into_tensor(out, t, group=self.group)
         return out
 
@@ -162,8 +192,17 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 
 
 def shutdown() -> None:
-    """Leave the default group, if this process is in one."""
+    """Leave the default group, if this process is in one. The captured
+    programs this process no longer references are freed first
+    (``gc.collect``: a Trainer's graphs may sit in a reference cycle) and
+    the device finishes its work: destroying NCCL's communicator while a
+    CUDA graph that holds its kernels is alive can block. A caller that
+    keeps such a graph (a live Trainer, a predict function) drops it
+    before it leaves."""
     if dist.is_initialized():
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dist.destroy_process_group()
 
 

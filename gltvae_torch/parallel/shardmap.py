@@ -9,7 +9,9 @@ and metrics are averaged over the ranks (the ``pmean`` of
 gltvae's shard_map). Both are valid DP samplings; this one differs from
 the one-device run at the same global batch by its draws, so it is held
 to that run statistically (tests/test_torch_dp.py: loss within 5%, params
-within 2·lr), not bit for bit.
+within 2·lr), not bit for bit. Like gltvae's jitted shard_map step, the
+steps are captured where ``make_train_steps``' are: the host part draws
+this rank's noise into the graph's static buffers.
 """
 
 from __future__ import annotations
@@ -27,21 +29,30 @@ from gltvae_torch.train.steps import draw_noise, make_train_steps
 class _RankNoise(DataParallel):
     """DataParallel whose noise is drawn per rank."""
 
-    def local_noise(self, state: TrainState, b: int, supervised: bool,
-                    k: int, noise: Optional[dict] = None) -> dict:
+    def draws(self, state: TrainState, b: int, supervised: bool, k: int,
+              noise: Optional[dict] = None, out: Optional[dict] = None
+              ) -> dict:
         """`noise` when given (this rank's own), else this rank's draws
-        from the step's seed folded with the rank."""
+        from the step's seed folded with the rank (into `out` when
+        given)."""
         if noise is not None:
             return noise
         gen = torch.Generator(device=state.device)
         gen.manual_seed(step_seed(step_seed(state.seed, state.step),
                                   self.mesh.rank))
-        return draw_noise(state.model, b, supervised, k, gen)
+        return draw_noise(state.model, b, supervised, k, gen, out=out)
+
+    def rows_of(self, noise: dict) -> dict:
+        """The draws are this rank's own already."""
+        return noise
 
 
-def make_shardmap_train_steps(model, train_cfg, mesh: Mesh
+def make_shardmap_train_steps(model, train_cfg, mesh: Mesh,
+                              jit: Optional[bool] = None
                               ) -> Tuple[Callable, Callable]:
     """(sup_step, unsup_step) with per-rank noise and explicitly averaged
     gradients; the signatures of ``make_train_steps`` (x, y this rank's
-    rows)."""
-    return make_train_steps(model, train_cfg, dp=_RankNoise(mesh))
+    rows), captured by its rule (``steps.resolve_jit``: by default on an
+    NCCL mesh of one rank and on the CPU, with ``jit=True`` on an NCCL
+    mesh of more, never on gloo over CUDA)."""
+    return make_train_steps(model, train_cfg, dp=_RankNoise(mesh), jit=jit)

@@ -54,27 +54,53 @@ replay launches the kernels without calling their wrappers, so each
 replay adds the launches the capture recorded. The warm-up's launches are
 left out, as a launch made to compare a kernel with its plain version is:
 what they produced is put back or dropped.
+
+**On a mesh** (gltvae's jitted data-parallel makers, parallel/dp.py) the
+device part holds the step's collectives: the gradient all-reduce, the
+eval's all_gather, a resident chunk's row exchange. Over NCCL they are
+captured into the graph with the rest (``parallel.mesh.Mesh.
+capturable``); the warm-up's collectives, eager on the side stream, make
+the communicator first. Every rank captures the same programs in the same
+order, since every rank runs the same schedule (the same mask patterns,
+the same short last chunk), and so replays them in the same order. The
+host part draws the global batch's noise into a global-size static slot,
+and the device part reads this rank's rows of it as views; a padded
+batch's crops are this rank's rows of the global batch's draws
+(``Crop``). Every program takes the mesh as its ``dp`` (a
+``parallel.dp.DataParallel``, None on one device), from which it derives
+the row exchange, the world size and the capture mode. A program of a
+mesh with a process group is captured in the ``'thread_local'`` error
+mode: NCCL's watchdog thread queries the events of earlier collectives
+on its own schedule, and in the default ``'global'`` mode such a query
+from another thread during a capture is an error whenever the two meet
+(a race no run can rule out by passing); the capturing thread's own
+calls are checked in either mode. ``Captured.collectives`` counts the
+collectives a capture issued (for the graph audit).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from gltvae_torch.ops import preprocess
+from gltvae_torch.parallel import mesh as _mesh
 from gltvae_torch.train.state import TrainState, next_alpha, step_seed
 
 #: Device-part runs before a capture.
 WARMUP_STEPS = 2
 
 
-def _cuda_capture(fn: Callable[[], Dict[str, torch.Tensor]], pool):
+def _cuda_capture(fn: Callable[[], Dict[str, torch.Tensor]], pool,
+                  error_mode: str = 'global'):
     """(graph, outputs): `fn` captured on the current CUDA device into a
-    memory pool shared with the other programs of its maker."""
+    memory pool shared with the other programs of its maker, in
+    `error_mode` (``torch.cuda.graph``'s ``capture_error_mode``)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
         out = fn()
     return graph, out
 
@@ -103,10 +129,14 @@ class Crop:
     drawn offset, flipped by a drawn coin and scaled by 1/255 (the augment
     kernel). The draws of global step s come from a generator seeded
     ``step_seed(seed + 2, s)``, so they depend neither on the dispatch nor
-    on ``steps_per_dispatch``."""
+    on ``steps_per_dispatch``. On a mesh (rank `rank` of `world`) they are
+    the global batch's draws, of which the rank keeps its rows, so the
+    crops depend on the world size neither."""
     size: int
     pad: int
     seed: int
+    rank: int = 0
+    world: int = 1
 
     def takes(self, shape: Sequence[int], dtype: torch.dtype) -> bool:
         """Whether a batch of (shape, dtype) is a padded train batch."""
@@ -115,13 +145,32 @@ class Crop:
 
     def draw(self, step: int, b: int, device: torch.device,
              out: Optional[Tuple[torch.Tensor, ...]] = None):
-        """(dy, dx, fl), int32 [b] each, for global step `step` (written
-        into `out` when given)."""
+        """(dy, dx, fl), int32 [b] each, for global step `step`: this
+        rank's b rows of the global batch's (written into `out` when
+        given)."""
         g = torch.Generator(device=device)
         g.manual_seed(step_seed(self.seed + 2, step))
         edge = self.size + 2 * self.pad
-        return preprocess.draw_crop_flip(g, b, edge, edge, self.size,
-                                         out=out)
+        if self.world == 1:
+            return preprocess.draw_crop_flip(g, b, edge, edge, self.size,
+                                             out=out)
+        rows = slice(self.rank * b, (self.rank + 1) * b)
+        draws = preprocess.draw_crop_flip(g, b * self.world, edge, edge,
+                                          self.size)
+        if out is None:
+            return tuple(d[rows].contiguous() for d in draws)
+        for o, d in zip(out, draws):
+            o.copy_(d[rows])
+        return out
+
+
+def index_rows(sources, idxs) -> List[tuple]:
+    """(x, y) of step or batch j: rows idxs[j] of sources[j] = (images,
+    labels or None), gathered on the device (the one-device row gather of
+    a resident program; a mesh's exchanges rows, ``steps.py``)."""
+    return [(images.index_select(0, i),
+             None if labels is None else labels.index_select(0, i))
+            for (images, labels), i in zip(sources, idxs)]
 
 
 def _clone(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -144,10 +193,19 @@ class Captured:
     #: what the owner is called in ``check``'s message
     owner_kind = 'state'
 
-    def __init__(self, device: torch.device, pool=None):
+    def __init__(self, device: torch.device, pool=None, dp=None):
         self.device = torch.device(device)
         self.pool = pool
-        self.capture = graph_capture(self.device)
+        #: the mesh (``parallel.dp.DataParallel``; None on one device)
+        self.dp = dp
+        self.world = 1 if dp is None else dp.mesh.world
+        #: the resident row gather: one device's, or the mesh's exchange
+        self.row_gather = index_rows if dp is None else dp.step_batches
+        capture = graph_capture(self.device)
+        if capture is not None and dp is not None \
+                and dp.mesh.group is not None:  # see the module docstring
+            capture = functools.partial(capture, error_mode='thread_local')
+        self.capture = capture
         self.graph = None
         #: the owner the graph was captured on
         self.owner = None
@@ -155,6 +213,8 @@ class Captured:
         #: kernel launches one replay makes (counted at the capture)
         self.dequant_launches = 0
         self.augment_launches = 0
+        #: collectives one replay makes (counted at the capture)
+        self.collectives = 0
 
     def buffer(self, shape, dtype) -> torch.Tensor:
         """A static input of `shape` and `dtype` on the program's
@@ -212,7 +272,8 @@ class Captured:
             torch.cuda.current_stream(self.device).wait_stream(side)
         else:
             self.warm_up(owner)
-        warm = preprocess.launches, preprocess.augment_launches
+        warm = (preprocess.launches, preprocess.augment_launches,
+                _mesh.collectives)
         grad = torch.enable_grad() if self.writes else torch.no_grad()
 
         def run():
@@ -222,6 +283,7 @@ class Captured:
         self.owner = owner
         self.dequant_launches = preprocess.launches - warm[0]
         self.augment_launches = preprocess.augment_launches - warm[1]
+        self.collectives = _mesh.collectives - warm[2]
         preprocess.launches, preprocess.augment_launches = counts
 
     def __call__(self, owner) -> Dict[str, torch.Tensor]:
@@ -283,14 +345,15 @@ class CapturedStep(Captured):
     inputs' (shape, dtype); with `crop` (a padded uint8 batch) the device
     part first crops x through the augment kernel from the static offsets
     ``crop_draws``. `pool` is the CUDA graph memory pool the captures of
-    one maker share."""
+    one maker share; `dp` the mesh whose collectives the device part
+    holds."""
 
     writes = True
 
     def __init__(self, device_part: Callable, x: tuple, y: tuple,
                  device: torch.device, pool=None,
-                 crop: Optional[Crop] = None):
-        super().__init__(device, pool)
+                 crop: Optional[Crop] = None, dp=None):
+        super().__init__(device, pool, dp)
         self.device_part = device_part
         self.x = self.buffer(*x)
         self.y = self.buffer(*y)
@@ -352,7 +415,8 @@ class JitStep:
     (a slot of static buffers) when given.
     `lr` is the Adam learning rate, `device` the model's, where the static
     inputs live; `crop` the augment stage of padded batches (None without
-    augmentation).
+    augmentation). On a mesh, `dp` (``parallel.dp.DataParallel``), x and
+    y are this rank's rows; ``gathered`` is one device's.
 
     Unlike gltvae's jitted step, which is pure, a captured step is bound
     to the state it was captured on, and another state raises
@@ -360,13 +424,14 @@ class JitStep:
 
     def __init__(self, device_part: Callable, host: Callable, lr: float,
                  device: torch.device, pool=None,
-                 crop: Optional[Crop] = None):
+                 crop: Optional[Crop] = None, dp=None):
         self.device_part = device_part
         self.host = host
         self.lr = lr
         self.device = device
         self.pool = pool
         self.crop = crop
+        self.dp = dp
         self.steps: Dict[tuple, CapturedStep] = {}
 
     def captured(self, x: tuple, y: tuple) -> CapturedStep:
@@ -377,7 +442,8 @@ class JitStep:
             crop = (self.crop if self.crop is not None
                     and self.crop.takes(*x) else None)
             step = self.steps[(x, y)] = CapturedStep(
-                self.device_part, x, y, self.device, self.pool, crop)
+                self.device_part, x, y, self.device, self.pool, crop,
+                self.dp)
         return step
 
     def _run(self, step: CapturedStep, state: TrainState, gating_temp,
@@ -417,7 +483,9 @@ class CapturedChunk(Captured):
     a shipped stacked batch (static ``xs`` [n, B, ...], ``ys``; a padded
     one cropped by one augment launch over n·B images) or rows of
     resident splits, ``sources[j]`` = (images, labels) of step j,
-    gathered inside the graph from the static ``idxs`` [n, B].
+    gathered inside the graph from the static ``idxs`` [n, B] (on a mesh,
+    `dp`, by the row exchange: B is the global batch and each step this
+    rank's B/world rows).
 
     The metrics come out stacked [n]. Autograd frees step j's activations
     before step j + 1 runs, so the graph's pool reuses them."""
@@ -426,8 +494,8 @@ class CapturedChunk(Captured):
 
     def __init__(self, parts: Dict[bool, Callable], mask: Tuple[bool, ...],
                  x: tuple, y: tuple, device: torch.device, pool=None,
-                 crop: Optional[Crop] = None, sources=None):
-        super().__init__(device, pool)
+                 crop: Optional[Crop] = None, sources=None, dp=None):
+        super().__init__(device, pool, dp)
         self.parts = parts
         self.mask = mask
         n = len(mask)
@@ -435,10 +503,11 @@ class CapturedChunk(Captured):
         if sources is None:
             self.xs, self.ys = self.buffer(*x), self.buffer(*y)
             self.idxs = None
+            self.batch = b = x[0][1]
         else:
             self.xs = self.ys = None
             self.idxs = self.buffer(*x)
-        self.batch = b = x[0][1]
+            self.batch = b = x[0][1] // self.world  # this rank's rows
         self.temp = self.buffer((), torch.float32).zero_()
         self.alpha = self.buffer((n,), torch.float32).zero_()
         self.noise = _Noise(self.device, n)
@@ -457,23 +526,20 @@ class CapturedChunk(Captured):
 
     def batches(self) -> List[torch.Tensor]:
         if self.sources is not None:
-            return [images.index_select(0, i)
-                    for (images, _), i in zip(self.sources, self.idxs)]
+            return [x for x, _ in self.row_gather(self.sources, self.idxs)]
         return list(self.xs) if self.xs.dtype == torch.uint8 else []
 
     def _run(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        xs = self.xs
-        if self.crop is not None:
-            xs = preprocess.fused_augment_stacked_given(
-                xs, *self.crop_draws, self.crop.size)
+        if self.sources is not None:
+            batches = self.row_gather(self.sources, self.idxs)
+        else:
+            xs = self.xs
+            if self.crop is not None:
+                xs = preprocess.fused_augment_stacked_given(
+                    xs, *self.crop_draws, self.crop.size)
+            batches = list(zip(xs, self.ys))
         mets = []
-        for j, m in enumerate(self.mask):
-            if self.sources is None:
-                x, y = xs[j], self.ys[j]
-            else:
-                images, labels = self.sources[j]
-                x = torch.index_select(images, 0, self.idxs[j])
-                y = torch.index_select(labels, 0, self.idxs[j])
+        for j, (m, (x, y)) in enumerate(zip(self.mask, batches)):
             mets.append(self.parts[m](state, x, y, self.temp, self.alpha[j],
                                       self.noise.out(j)))
         return {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
@@ -495,7 +561,7 @@ class JitChunk:
     def __init__(self, sup: JitStep, unsup: JitStep):
         self.kinds = {True: sup, False: unsup}
         self.lr, self.device, self.pool = sup.lr, sup.device, sup.pool
-        self.crop = sup.crop
+        self.crop, self.dp = sup.crop, sup.dp
         self.chunks: Dict[tuple, CapturedChunk] = {}
 
     def captured(self, mask: Tuple[bool, ...], x: tuple, y: tuple,
@@ -511,7 +577,7 @@ class JitChunk:
                     and self.crop.takes(*x) else None)
             chunk = self.chunks[key] = CapturedChunk(
                 {k: s.device_part for k, s in self.kinds.items()}, mask, x,
-                y, self.device, self.pool, crop, sources)
+                y, self.device, self.pool, crop, sources, self.dp)
         return chunk
 
     def _run(self, chunk: CapturedChunk, state: TrainState, gating_temp):
@@ -561,19 +627,22 @@ class JitChunk:
 
 class CapturedPass(Captured):
     """An eval or ELBO pass of n batches in one program: ``fn(model, x, y,
-    noise_j)`` -> a 0-d value for batch j, stacked to [n] (``value``).
-    Batch j is ``xs[j]`` (with ``ys[j]``) of a static stacked batch, or
-    rows ``idxs[j]`` of a resident split ``source`` = (images, labels or
-    None), gathered inside the graph. The noise of batch j is slot j of
-    ``noise`` (None for a deterministic pass); the temperature is static.
-    The model's parameters are read in place; nothing is written back."""
+    noise_j)`` -> a value for batch j (0-d, or inference's [B, y]),
+    stacked to [n, ...] (``value``). Batch j is ``xs[j]`` (with
+    ``ys[j]``) of a static stacked batch, or rows ``idxs[j]`` of a
+    resident split ``source`` = (images, labels or None), gathered inside
+    the graph (on a mesh, `dp`, by the row exchange). The noise of batch
+    j is slot j of ``noise`` (None for a deterministic pass), drawn for
+    ``batch`` rows: the global batch's on a mesh, where `fn` reads this
+    rank's; the temperature is static. The model's
+    parameters are read in place; nothing is written back."""
 
     owner_kind = 'model'
 
     def __init__(self, fn: Callable, n: int, x: tuple, y: Optional[tuple],
                  device: torch.device, pool=None, source=None,
-                 stochastic: bool = True):
-        super().__init__(device, pool)
+                 stochastic: bool = True, dp=None):
+        super().__init__(device, pool, dp)
         self.fn = fn
         self.n = n
         self.source = source
@@ -584,7 +653,9 @@ class CapturedPass(Captured):
         else:
             self.xs = self.ys = None
             self.idxs = self.buffer(*x)
-        self.batch = x[0][1]
+        #: the rows a batch's draws cover: a shipped batch is this
+        #: rank's rows, a resident one's indices the global batch's
+        self.batch = x[0][1] * (self.world if source is None else 1)
         self.temp = self.buffer((), torch.float32).zero_()
         self.noise = _Noise(self.device, n) if stochastic else None
 
@@ -600,20 +671,18 @@ class CapturedPass(Captured):
 
     def batches(self) -> List[torch.Tensor]:
         if self.source is not None:
-            return [self.source[0].index_select(0, i) for i in self.idxs]
+            return [x for x, _ in self.row_gather([self.source] * self.n,
+                                                  self.idxs)]
         return list(self.xs) if self.xs.dtype == torch.uint8 else []
 
     def _run(self, model) -> Dict[str, torch.Tensor]:
+        if self.source is not None:
+            batches = self.row_gather([self.source] * self.n, self.idxs)
+        else:
+            batches = [(self.xs[j], None if self.ys is None else self.ys[j])
+                       for j in range(self.n)]
         vals = []
-        for j in range(self.n):
-            if self.source is None:
-                x = self.xs[j]
-                y = None if self.ys is None else self.ys[j]
-            else:
-                images, labels = self.source
-                x = torch.index_select(images, 0, self.idxs[j])
-                y = (None if labels is None
-                     else torch.index_select(labels, 0, self.idxs[j]))
+        for j, (x, y) in enumerate(batches):
             noise = None if self.noise is None else self.noise.out(j)
             vals.append(self.fn(model, x, y, self.temp, noise))
         return {'value': torch.stack(vals)}
@@ -630,12 +699,16 @@ class JitPass:
     out) -> noise`` (None for a deterministic pass, which draws nothing).
     The host part draws the n batches' noise from the one eval generator,
     batch by batch, straight into the static buffers: the generator ends
-    where the eager pass leaves it, and the draws equal its draws."""
+    where the eager pass leaves it, and the draws equal its draws. On a
+    mesh, `dp`, a shipped batch is this rank's rows and b the global
+    batch's."""
 
-    def __init__(self, model, fn: Callable, draw: Optional[Callable]):
+    def __init__(self, model, fn: Callable, draw: Optional[Callable],
+                 dp=None):
         self.model = model
         self.fn = fn
         self.draw = draw
+        self.dp = dp
         self.device = model.mu.device
         self.pool = graph_pool(self.device)
         self.passes: Dict[tuple, CapturedPass] = {}
@@ -649,7 +722,7 @@ class JitPass:
         if p is None:
             p = self.passes[key] = CapturedPass(
                 self.fn, n, x, y, self.device, self.pool, source,
-                stochastic=self.draw is not None)
+                stochastic=self.draw is not None, dp=self.dp)
         return p
 
     def run(self, p: CapturedPass, model, generator, gating_temp):

@@ -52,18 +52,23 @@ Rank 0 alone writes metrics.csv, events, μ exports and checkpoints, and
 the others wait at a barrier after each save; every rank restores the same
 checkpoint on resume; the throughput meter counts global images.
 
-**Captured dispatches** (``jit``, by default on one device; gltvae's
-jitted dispatches): on one device every dispatch is a CUDA graph,
+**Captured dispatches** (``jit``, by default on one device and on an NCCL
+mesh of one rank, with ``jit=True`` on an NCCL mesh of more; gltvae's
+jitted dispatches; ``steps.resolve_jit``): every dispatch is a CUDA graph,
 captured at its first call for each kind, mask pattern and input shape
 and replayed from then on (``train/graphs.py``): a train step, a chunk of
 n steps (one replay, one graph a sup/unsup pattern), the augment kernel
 inside the step's or chunk's graph, and each eval and ELBO pass (one
-replay a shipped chunk, one a resident epoch). The Trainer passes the
+replay a shipped chunk, one a resident epoch). On a mesh each rank's
+graphs hold its collectives (the gradient all-reduce, the eval's
+all_gather, a resident dispatch's row exchange), and every rank captures
+and replays the same graphs in the same order. The Trainer passes the
 gating temperature at every dispatch, so the per-epoch decay reaches the
 graphs' static temperature; a resume or ``load_params`` writes into the
-tensors the graphs read. ``jit=False`` runs every dispatch eagerly, for
-comparison. On a mesh the dispatches are eager by default (they are not
-captured yet), and ``jit=True`` there raises.
+tensors the graphs read, on every rank. ``jit=False`` runs every dispatch
+eagerly, for comparison. On the CPU the static-buffer path runs eagerly;
+on a gloo mesh over CUDA tensors the dispatches are eager, and
+``jit=True`` there raises (``steps.resolve_jit``).
 
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
@@ -125,8 +130,8 @@ class Trainer:
                  debug_nans: bool = False,
                  jit: Optional[bool] = None):
         check_supported(model_cfg, train_cfg, mesh=mesh)
-        # captured train steps by default on one device; a mesh's are
-        # eager, and asking for captured ones there raises
+        # captured dispatches by default, but on a gloo mesh over CUDA
+        # tensors, where asking for them raises
         self._jit = resolve_jit(jit, mesh)
         for name, mode in (('resident_eval', resident_eval),
                            ('resident_train', resident_train)):
@@ -173,13 +178,15 @@ class Trainer:
         if debug_nans:
             # a dispatch with a NaN is replayed op by op through its eager
             # counterpart (as jax_debug_nans re-runs a jitted call
-            # de-optimised)
+            # de-optimised); on a mesh the data-parallel one, whose
+            # collectives every rank's replay meets
             eager = {}
             if self._jit:
-                sup, unsup = make_train_steps(model, train_cfg, jit=False)
+                sup, unsup = make_train_steps(model, train_cfg, dp,
+                                              jit=False)
                 eager = {'_sup_step': sup, '_unsup_step': unsup,
                          '_chunk_step': mixed_chunk(sup, unsup)}
-                eager.update((name, make(model, train_cfg, jit=False))
+                eager.update((name, make(model, train_cfg, dp, jit=False))
                              for name, make in evals)
             for name in ('_sup_step', '_unsup_step', '_chunk_step',
                          '_scan_eval', '_scan_elbo', '_resident_eval_step',
@@ -249,14 +256,10 @@ class Trainer:
         if self._jit:
             return u8
         n = u8.shape[0] if u8.dim() == 5 else 1
-        world = 1 if self.mesh is None else self.mesh.world
-        B = u8.shape[-4] * world
-        rows = slice(None) if self.mesh is None else self.mesh.rows(B)
-        crop = train_crop(self.model, self.cfg)
-        draws = [crop.draw(self.state.step + i, B, self.device)
+        crop = train_crop(self.model, self.cfg, self._dp)
+        draws = [crop.draw(self.state.step + i, u8.shape[-4], self.device)
                  for i in range(n)]
-        dy, dx, fl = (torch.stack(v)[:, rows].contiguous()
-                      for v in zip(*draws))
+        dy, dx, fl = (torch.stack(v) for v in zip(*draws))
         if u8.dim() == 5:
             return preprocess.fused_augment_stacked_given(u8, dy, dx, fl,
                                                           size)

@@ -11,10 +11,13 @@ the loss and its gradient, and applies Keras Adam in place (its device
 part). ``metrics`` holds 0-d device tensors, so a step never waits for
 the device.
 
-By default on one device every maker here is captured (``jit``, gltvae's
-``jax.jit``): the device part of each dispatch is a CUDA graph replayed
-on a CUDA device (``train/graphs.py``), and on the CPU the same
-static-buffer path runs eagerly; ``jit=False`` runs everything eagerly.
+By default every maker here is captured (``jit``, gltvae's ``jax.jit``):
+the device part of each dispatch is a CUDA graph replayed on a CUDA
+device (``train/graphs.py``), and on the CPU the same static-buffer path
+runs eagerly; ``jit=False`` runs everything eagerly. The rule on a mesh
+is ``resolve_jit``'s: captured over NCCL (by default on one rank, with
+``jit=True`` on more), the static-buffer path on the CPU, eager over gloo
+on CUDA tensors (where ``jit=True`` raises).
 Captured, each dispatch is one replay:
 - a train step (``make_train_steps``), one graph a step kind and input
   shape;
@@ -52,8 +55,14 @@ with the same draws, so they equal the per-batch calls bit for bit:
 
 Every maker takes ``dp``, a ``parallel.dp.DataParallel``, which makes its
 steps the data-parallel ones of parallel/dp.py (gltvae's
-``make_parallel_*``); without it they run on one device. Data-parallel
-steps are eager: ``jit=True`` with ``dp`` raises.
+``make_parallel_*``, jitted there as here); without it they run on one
+device. With ``dp`` the host part draws the global batch's noise (into
+global-size static buffers when captured) and the device part reads this
+rank's rows of it as views, so the draws, and the generators after them,
+are the eager data-parallel step's; a padded batch's crops are this
+rank's rows of the global batch's; a resident program exchanges its rows
+over the mesh (``parallel.dp.gather_rows``) inside its graph, and the
+eval's all_gather and the gradient all-reduce run there too.
 """
 
 from __future__ import annotations
@@ -72,7 +81,7 @@ from gltvae_torch.ops.preprocess import dequant
 from gltvae_torch.ops.resize import resize_bilinear
 from gltvae_torch.ops.sampling import sample_gumbel
 from gltvae_torch.train.graphs import (Crop, JitChunk, JitPass, JitStep,
-                                       graph_pool)
+                                       graph_pool, index_rows)
 from gltvae_torch.train.state import (TrainState, keras_adam_update,
                                       next_alpha)
 
@@ -113,7 +122,7 @@ def draw_eval_noise(model: CCVAE, batch: int, generator: torch.Generator,
                     out: Optional[dict] = None) -> dict:
     """One stochastic eval batch's draws, in the order ``predict_probs``
     takes them from a generator: z's normals, then the two gate Gumbels
-    (the order ``parallel.dp.DataParallel.eval_noise`` records). With
+    (on a mesh, the global batch's, of which each rank reads its rows). With
     `out` they are drawn into it."""
     dev = model.mu.device
     o = out or {}
@@ -169,23 +178,49 @@ def remat(fn: Callable, mode: str) -> Callable:
 
 
 def resolve_jit(jit: Optional[bool], dp) -> bool:
-    """Whether a maker's dispatches are captured: by default on one
-    device; with `dp` (a ``DataParallel``, or the Trainer's mesh) they are
-    eager, and asking for both raises."""
-    if jit and dp is not None:
-        raise ValueError(
-            'jit=True on a mesh: the data-parallel step is not captured yet '
-            '(ROADMAP Queue 4 item 3, "the data-parallel step with NCCL '
-            'captured"); pass jit=False')
-    return dp is None if jit is None else jit
+    """Whether a maker's dispatches are captured. `dp` is a
+    ``DataParallel`` (or the Trainer's mesh), read through its mesh's
+    record: on one device, on an NCCL mesh of one rank and on a CPU mesh,
+    captured by default (on the CPU, the static-buffer path run eagerly);
+    on a gloo mesh over CUDA tensors eager by default, and ``jit=True``
+    raises. On an NCCL mesh of more than one rank the dispatches are eager
+    by default and captured with ``jit=True``: across cards only the
+    captured train steps and eval passes have been held to eager on the
+    card (``chip_smoke.py`` phase 37); the chunks, resident exchanges,
+    shardmap steps and inference have been, so far, on one rank only
+    (phase 42 at D = 1)."""
+    mesh = None if dp is None else getattr(dp, 'mesh', dp)
+    if mesh is not None and mesh.device.type == 'cuda':
+        if not mesh.capturable:
+            if jit:
+                raise ValueError(
+                    f'jit=True on a {mesh.backend} mesh over {mesh.device}: '
+                    f'gloo moves CUDA tensors through host memory, which a '
+                    f'CUDA graph cannot hold; use NCCL (one rank a card) '
+                    f'or pass jit=False')
+            return False
+        if jit is None and mesh.world > 1:
+            return False
+    return True if jit is None else jit
 
 
-def train_crop(model: CCVAE, train_cfg: TrainConfig) -> Optional[Crop]:
+def train_crop(model: CCVAE, train_cfg: TrainConfig,
+               dp=None) -> Optional[Crop]:
     """The augment stage of `model`'s train steps (None without
-    ``augment_pad``)."""
+    ``augment_pad``); with `dp`, its rank's rows of the global batch's
+    draws."""
     if train_cfg.augment_pad <= 0:
         return None
-    return Crop(model.cfg.image_size, train_cfg.augment_pad, train_cfg.seed)
+    mesh = None if dp is None else dp.mesh
+    return Crop(model.cfg.image_size, train_cfg.augment_pad, train_cfg.seed,
+                *(() if mesh is None else (mesh.rank, mesh.world)))
+
+
+def resident_gather(dp) -> Callable:
+    """The row gather of `dp`'s resident programs, ``(sources, idxs) ->
+    [(x, y)]``: ``graphs.index_rows`` on one device, the mesh's exchange
+    (``DataParallel.step_batches``) on a mesh."""
+    return index_rows if dp is None else dp.step_batches
 
 
 def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
@@ -204,18 +239,19 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     device the device part is a CUDA graph, captured once per input shape
     and dtype and replayed at each step (gltvae's ``jax.jit(step,
     donate_argnums=(0,))``); on the CPU the same static-buffer path runs
-    eagerly. ``jit=False`` gives the plain eager steps, which the
-    data-parallel steps always are: ``jit=True`` with `dp` raises.
+    eagerly. ``jit=False`` gives the plain eager steps. With `dp` the rule
+    is ``resolve_jit``'s: the graph holds the gradient all-reduce.
 
-    With ``train_cfg.augment_pad`` P > 0 on one device, a uint8 batch
-    padded to S + 2P is cropped by the augment kernel inside the step
-    (inside its graph when captured), with the offsets of global step
-    ``state.step`` (``graphs.Crop``); any other batch goes in as it is."""
+    With ``train_cfg.augment_pad`` P > 0, a uint8 batch padded to S + 2P
+    is cropped by the augment kernel inside the step (inside its graph
+    when captured), with the offsets of global step ``state.step``
+    (``graphs.Crop``; on a mesh this rank's rows of the global batch's);
+    any other batch goes in as it is."""
     jit = resolve_jit(jit, dp)
     gating_reg = train_cfg.gating_reg if model.cfg.mu_trainable else 0.0
     k = train_cfg.classifier_mc_samples
     size = model.cfg.image_size
-    crop = train_crop(model, train_cfg) if dp is None else None
+    crop = train_crop(model, train_cfg, dp)
 
     def sup_loss(model, x, y, temps, noise):
         return model.sup_loss(x, y, temps, gating_reg=gating_reg, k=k,
@@ -231,6 +267,8 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
         """(state, x, y, gating_temp, alpha, noise) -> metrics: everything
         of a step that runs on the device, reading nothing back."""
         def part(state: TrainState, x, y, gating_temp, alpha, noise):
+            if dp is not None:
+                noise = dp.rows_of(noise)
             x = _prep_image(x, size)
             temps = Temps(gating=gating_temp)
             if supervised:
@@ -252,10 +290,11 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     def host_noise(supervised: bool) -> Callable:
         """(state, b, noise, out=None) -> the step's draws: `noise` when
         given, else drawn from the state's per-step generator (into `out`
-        when given; on a mesh, this rank's rows of the global batch's)."""
+        when given; on a mesh, the global batch's for b rows a rank,
+        ``DataParallel.draws``)."""
         def draws(state: TrainState, b: int, noise, out=None):
             if dp is not None:
-                return dp.local_noise(state, b, supervised, k, noise)
+                return dp.draws(state, b, supervised, k, noise, out)
             if noise is None:
                 noise = draw_noise(state.model, b, supervised, k,
                                    state.next_generator(), out=out)
@@ -283,7 +322,8 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     dev = model.mu.device
     pool = graph_pool(dev)
     return tuple(JitStep(device_part(s), host_noise(s), train_cfg.lr, dev,
-                         pool, crop) for s in (True, False))
+                         pool, crop, dp)
+                 for s in (True, False))
 
 
 def _stack(mets):
@@ -343,16 +383,6 @@ def make_scan_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
     return make(True), make(False)
 
 
-def _resident_batches(dp, images, labels, idxs):
-    """(x, y) of each index row of `idxs` [n, B] from a resident split,
-    gathered on the device; with `dp`, this rank's rows of each, exchanged
-    over the mesh (``parallel.dp.gather_rows``)."""
-    if dp is not None:
-        return dp.resident_batches(images, labels, idxs)
-    return ((images.index_select(0, i), labels.index_select(0, i))
-            for i in idxs)
-
-
 def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig,
                                    dp=None, jit: Optional[bool] = None
                                    ) -> Tuple[Callable, Callable]:
@@ -361,20 +391,21 @@ def make_resident_scan_train_steps(model: CCVAE, train_cfg: TrainConfig,
     gating_temp) -> (state, metrics [n]). Inner step j trains on rows
     idxs[j], gathered on the device (a captured chunk gathers them inside
     its graph). With `dp`, images are this rank's resident rows
-    (``parallel.dp.place_resident_split``)."""
+    (``parallel.dp.place_resident_split``) and one exchange gathers the
+    chunk's rows (inside the graph when captured)."""
     sup, unsup = make_train_steps(model, train_cfg, dp, jit)
-    jitted = isinstance(sup, JitStep)
-    chunk = JitChunk(sup, unsup) if jitted else None
+    jchunk = JitChunk(sup, unsup) if isinstance(sup, JitStep) else None
+    gather = resident_gather(dp)
 
     def make(kind: bool):
         def scan(state: TrainState, images, labels, idxs, gating_temp):
+            sources = [(images, labels)] * len(idxs)
             mask = [kind] * len(idxs)
-            if jitted:
-                return chunk.gathered(state, [(images, labels)] * len(idxs),
-                                      idxs, mask, gating_temp)
-            return _run_chunk(sup, unsup, state,
-                              _resident_batches(dp, images, labels, idxs),
-                              mask, gating_temp)
+            if jchunk is not None:
+                return jchunk.gathered(state, sources, idxs, mask,
+                                       gating_temp)
+            return _run_chunk(sup, unsup, state, gather(sources, idxs), mask,
+                              gating_temp)
         return scan
     return make(True), make(False)
 
@@ -387,63 +418,72 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
     (state, metrics [n]). Row j of idxs indexes the sup split where
     sup_mask[j], else the unsup split: the row stream the host path's
     ``next(sup_iter if flag else unsup_iter)`` consumes. With `dp`, one
-    exchange a split gathers the rows of its steps."""
+    exchange a split gathers the rows of its steps
+    (``resident_gather``)."""
     sup, unsup = make_train_steps(model, train_cfg, dp, jit)
-    jitted = isinstance(sup, JitStep)
-    jchunk = JitChunk(sup, unsup) if jitted else None
+    jchunk = JitChunk(sup, unsup) if isinstance(sup, JitStep) else None
+    gather = resident_gather(dp)
 
     def chunk(state: TrainState, images_sup, labels_sup, images_unsup,
               labels_unsup, idxs, sup_mask: Sequence[bool], gating_temp):
         if len(idxs) != len(sup_mask):
             raise ValueError(f'{len(idxs)} index rows and {len(sup_mask)} '
                              'flags')
-        if dp is None:
-            sources = [(images_sup, labels_sup) if m
-                       else (images_unsup, labels_unsup) for m in sup_mask]
-            if jitted:
-                return jchunk.gathered(state, sources, idxs, sup_mask,
-                                       gating_temp)
-            return _run_chunk(sup, unsup, state, (
-                (images.index_select(0, i), labels.index_select(0, i))
-                for (images, labels), i in zip(sources, idxs)), sup_mask,
-                gating_temp)
-        got = {}
-        for kind, images, labels in ((True, images_sup, labels_sup),
-                                     (False, images_unsup, labels_unsup)):
-            js = [j for j, m in enumerate(sup_mask) if m == kind]
-            if js:
-                got.update(zip(js, dp.resident_batches(
-                    images, labels, idxs[js])))
-        batches = (got[j] for j in range(len(sup_mask)))
-        return _run_chunk(sup, unsup, state, batches, sup_mask, gating_temp)
+        sources = [(images_sup, labels_sup) if m
+                   else (images_unsup, labels_unsup) for m in sup_mask]
+        if jchunk is not None:
+            return jchunk.gathered(state, sources, idxs, sup_mask,
+                                   gating_temp)
+        return _run_chunk(sup, unsup, state, gather(sources, idxs), sup_mask,
+                          gating_temp)
     return chunk
 
 
-def _eval_pass(model: CCVAE, train_cfg: TrainConfig) -> JitPass:
+def _accuracy(model: CCVAE, x, y, temps: Temps, det: bool, noise, dp):
+    """One eval batch's accuracy from its draws `noise` (None when
+    deterministic): with `dp`, x and y are this rank's rows, `noise` the
+    global batch's draws, and the matches are gathered over the ranks."""
+    if dp is None:
+        return model.classifier_accuracy(x, y.to(torch.float32), temps,
+                                         deterministic=det, noise=noise)
+    y_hat = model.predict_labels(x, temps, det,
+                                 None if det else dp.rows_of(noise))
+    return dp.mean_rows((y_hat == y.to(y_hat.dtype)).to(torch.float32))
+
+
+def _elbo(model: CCVAE, x, temps: Temps, noise, dp):
+    """One ELBO batch's mean ELBO from its draws; with `dp`, this rank's
+    rows of the global batch's, averaged over the ranks."""
+    if dp is None:
+        return model.unsup_loss(x, temps, noise=noise)[1].elbo
+    return dp.mean(model.unsup_loss(x, temps,
+                                    noise=dp.rows_of(noise))[1].elbo)
+
+
+def _eval_pass(model: CCVAE, train_cfg: TrainConfig, dp=None) -> JitPass:
     """The captured eval pass of `model`: batch accuracies, stochastic
-    unless train_cfg.deterministic_eval."""
+    unless train_cfg.deterministic_eval; with `dp`, the global batch's."""
     det = train_cfg.deterministic_eval
     size = model.cfg.image_size
 
     def fn(model: CCVAE, x, y, temp, noise):
-        return model.classifier_accuracy(_prep_image(x, size),
-                                         y.to(torch.float32),
-                                         Temps(gating=temp),
-                                         deterministic=det, noise=noise)
-    return JitPass(model, fn, None if det else draw_eval_noise)
+        return _accuracy(model, _prep_image(x, size), y, Temps(gating=temp),
+                         det, noise, dp)
+    return JitPass(model, fn, None if det else draw_eval_noise, dp)
 
 
-def _elbo_pass(model: CCVAE) -> JitPass:
-    """The captured ELBO pass of `model`: mean unsupervised ELBOs."""
+def _elbo_pass(model: CCVAE, dp=None) -> JitPass:
+    """The captured ELBO pass of `model`: mean unsupervised ELBOs; with
+    `dp`, the global batch's."""
     size = model.cfg.image_size
 
     def fn(model: CCVAE, x, y, temp, noise):
-        return model.unsup_loss(_prep_image(x, size), Temps(gating=temp),
-                                noise=noise)[1].elbo
+        return _elbo(model, _prep_image(x, size), Temps(gating=temp), noise,
+                     dp)
 
     def draw(model, b, generator, out=None):
         return draw_noise(model, b, False, 0, generator, out=out)
-    return JitPass(model, fn, draw)
+    return JitPass(model, fn, draw, dp)
 
 
 def make_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
@@ -454,11 +494,12 @@ def make_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     is the global batch's. `jit` as ``make_train_steps`` (the rule of
     ``resolve_jit``): a captured pass of one batch."""
     if resolve_jit(jit, dp):
-        jp = _eval_pass(model, train_cfg)
+        jp = _eval_pass(model, train_cfg, dp)
         return lambda model, x, y, generator, gating_temp: jp.stacked(
             model, x[None], y[None], generator, gating_temp, 'batch')[0]
     det = train_cfg.deterministic_eval
     size = model.cfg.image_size
+    world = 1 if dp is None else dp.mesh.world
 
     @torch.no_grad()
     def eval_step(model: CCVAE, x, y, generator, gating_temp):
@@ -468,9 +509,9 @@ def make_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
             return model.classifier_accuracy(x, y.to(torch.float32), temps,
                                              deterministic=det,
                                              generator=generator)
-        noise = None if det else dp.eval_noise(model, x.shape[0], generator)
-        y_hat = model.predict_labels(x, temps, det, noise)
-        return dp.mean_rows((y_hat == y.to(y_hat.dtype)).to(torch.float32))
+        noise = None if det else draw_eval_noise(model, len(x) * world,
+                                                 generator)
+        return _accuracy(model, x, y, temps, det, noise, dp)
     return eval_step
 
 
@@ -480,10 +521,11 @@ def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     `dp`: this rank's rows, the global batch's draws, the mean over the
     ranks. `jit` as ``make_eval_step``."""
     if resolve_jit(jit, dp):
-        jp = _elbo_pass(model)
+        jp = _elbo_pass(model, dp)
         return lambda model, x, generator, gating_temp: jp.stacked(
             model, x[None], None, generator, gating_temp, 'batch')[0]
     size = model.cfg.image_size
+    world = 1 if dp is None else dp.mesh.world
 
     @torch.no_grad()
     def elbo_step(model: CCVAE, x, generator, gating_temp):
@@ -491,8 +533,8 @@ def make_elbo_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
         temps = Temps(gating=gating_temp)
         if dp is None:
             return model.unsup_loss(x, temps, generator=generator)[1].elbo
-        noise = dp.elbo_noise(model, x.shape[0], generator)
-        return dp.mean(model.unsup_loss(x, temps, noise=noise)[1].elbo)
+        noise = draw_noise(model, len(x) * world, False, 0, generator)
+        return _elbo(model, x, temps, noise, dp)
     return elbo_step
 
 
@@ -502,7 +544,7 @@ def make_scan_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     [n, B, ...] batches: n make_eval_step calls with one generator
     (captured: one replay)."""
     if resolve_jit(jit, dp):
-        return _eval_pass(model, train_cfg).stacked
+        return _eval_pass(model, train_cfg, dp).stacked
     ev = make_eval_step(model, train_cfg, dp, jit=False)
 
     def scan(model: CCVAE, xs, ys, generator, gating_temp):
@@ -517,7 +559,7 @@ def make_scan_elbo_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     batches: n make_elbo_eval_step calls with one generator (captured:
     one replay)."""
     if resolve_jit(jit, dp):
-        jp = _elbo_pass(model)
+        jp = _elbo_pass(model, dp)
         return lambda model, xs, generator, gating_temp: jp.stacked(
             model, xs, None, generator, gating_temp)
     el = make_elbo_eval_step(model, train_cfg, dp, jit=False)
@@ -534,16 +576,17 @@ def make_resident_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     generator, gating_temp) -> accs [n], batch j gathered from rows
     idxs[j]; the generator advances as in the per-batch path. Captured,
     a pass (a whole eval epoch in the Trainer) is one replay that gathers
-    its rows inside the graph."""
+    its rows inside the graph (on a mesh, one exchange)."""
     if resolve_jit(jit, dp):
-        return _eval_pass(model, train_cfg).resident
+        return _eval_pass(model, train_cfg, dp).resident
     ev = make_eval_step(model, train_cfg, dp, jit=False)
+    gather = resident_gather(dp)
 
     def resident(model: CCVAE, images, labels, idxs, generator,
                  gating_temp):
         return torch.stack([ev(model, x, y, generator, gating_temp)
-                            for x, y in _resident_batches(dp, images, labels,
-                                                          idxs)])
+                            for x, y in gather([(images, labels)] * len(idxs),
+                                               idxs)])
     return resident
 
 
@@ -552,17 +595,16 @@ def make_resident_elbo_step(model: CCVAE, train_cfg: TrainConfig, dp=None,
     """Device-resident ELBO: (model, images, idxs [n, B], generator,
     gating_temp) -> elbos [n] (captured: one replay)."""
     if resolve_jit(jit, dp):
-        jp = _elbo_pass(model)
+        jp = _elbo_pass(model, dp)
         return lambda model, images, idxs, generator, gating_temp: \
             jp.resident(model, images, None, idxs, generator, gating_temp)
     el = make_elbo_eval_step(model, train_cfg, dp, jit=False)
+    gather = resident_gather(dp)
 
     def resident(model: CCVAE, images, idxs, generator, gating_temp):
-        xs = ((x for x, _ in dp.resident_batches(images, None, idxs))
-              if dp is not None else
-              (images.index_select(0, i) for i in idxs))
         return torch.stack([el(model, x, generator, gating_temp)
-                            for x in xs])
+                            for x, _ in gather([(images, None)] * len(idxs),
+                                               idxs)])
     return resident
 
 

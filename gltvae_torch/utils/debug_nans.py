@@ -27,7 +27,10 @@ eval generator is put back first.
 
 On a mesh (``nan_checked(fn, mesh)``) the dispatch holds collectives, so
 every rank must replay or none: the "a NaN is present" decision is
-all-reduced (MAX) first. The replay then records the first NaN op instead
+all-reduced (MAX) first, eagerly between two dispatches (a captured
+dispatch's collectives are inside its graph). A captured dispatch's
+replay is then its eager data-parallel counterpart on every rank, so
+every rank meets the same collectives. The replay then records the first NaN op instead
 of raising at it, so that every rank reaches the replay's collectives,
 and each rank raises after it: naming its first NaN op, or saying that
 its own replay made none (the NaN came from another rank's rows through

@@ -181,8 +181,9 @@ def test_shardmap_noise_is_per_rank():
     from gltvae_torch.models.ccvae import CCVAE
     m, t = W.configs()
     state = create_train_state(CCVAE(m, mu_init=np.eye(4)), t)
-    draw = lambda rank: _RankNoise(Mesh(rank, 2, torch.device('cpu'))) \
-        .local_noise(state, 8, True, W.K)
+    def draw(rank):
+        dp = _RankNoise(Mesh(rank, 2, torch.device('cpu')))
+        return dp.rows_of(dp.draws(state, 8, True, W.K))
     a, b, a2 = draw(0), draw(1), draw(0)
     assert a['eps_z'].shape == (8, 8) and a['eps_k'].shape == (W.K, 8, 8)
     assert not torch.equal(a['eps_z'], b['eps_z'])
@@ -190,8 +191,9 @@ def test_shardmap_noise_is_per_rank():
 
 
 def test_global_noise_is_sliced_by_rank():
-    """DataParallel.local_noise: rank r of D keeps rows [r·b, (r+1)·b) of
-    the global draw (eps_k on axis 1) and the gate Gumbels whole."""
+    """DataParallel.draws, then rows_of: rank r of D keeps rows
+    [r·b, (r+1)·b) of the global draw (eps_k on axis 1) and the gate
+    Gumbels whole."""
     from gltvae_torch.train.state import create_train_state
     from gltvae_torch.train.steps import draw_noise
     from gltvae_torch.models.ccvae import CCVAE
@@ -199,8 +201,8 @@ def test_global_noise_is_sliced_by_rank():
     state = create_train_state(CCVAE(m, mu_init=np.eye(4)), t)
     full = draw_noise(state.model, 12, True, W.K, state.next_generator())
     for rank in range(3):
-        got = tdp.DataParallel(Mesh(rank, 3, torch.device('cpu'))) \
-            .local_noise(state, 4, True, W.K)
+        dp = tdp.DataParallel(Mesh(rank, 3, torch.device('cpu')))
+        got = dp.rows_of(dp.draws(state, 4, True, W.K))
         rows = slice(4 * rank, 4 * rank + 4)
         assert torch.equal(got['eps_z'], full['eps_z'][rows])
         assert torch.equal(got['eps_k'], full['eps_k'][:, rows])

@@ -129,6 +129,19 @@ def test_phase39_worlds_never_exceed_the_cards(cards, sweep, want):
     assert chip_smoke.dp_cli_worlds(cards, sweep) == want
 
 
+@pytest.mark.parametrize('given,want', [('4,2', [2, 4]), ('2', [2]),
+                                        ('4,4,1', [1, 4]), ('8', None),
+                                        ('0,2', None)])
+def test_phase39_worlds_as_given_never_exceed_the_cards(given, want):
+    """--worlds picks the rank counts of a --sweep-only run, sorted, and
+    never more ranks than cards."""
+    if want is None:
+        with pytest.raises(RuntimeError, match='--worlds'):
+            chip_smoke.dp_cli_worlds(4, True, given)
+    else:
+        assert chip_smoke.dp_cli_worlds(4, True, given) == want
+
+
 @pytest.mark.parametrize('mesh', [False, True])
 def test_phase39_argv_is_the_sweeps_first_command(mesh):
     from gltvae_torch.cli import build_configs, parse_args

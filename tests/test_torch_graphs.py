@@ -448,27 +448,63 @@ def test_a_capture_error_raises_out_of_the_trainer(monkeypatch, tmp_path):
     assert_same(snapshot(trainer.state), {**before, 'adam_count': 1})
 
 
-def test_jit_with_dp_raises():
-    """Captured data-parallel steps are not there yet: asking for them
-    raises and names the ROADMAP item; dp alone gives eager steps."""
+#: mesh records (rank 0 of 2) for the rule of steps.resolve_jit: gloo over
+#: CUDA tensors cannot be captured; NCCL and a CPU mesh can
+MESHES = {'gloo-cuda': ('gloo', 'cuda:0'), 'nccl-cuda': ('nccl', 'cuda:0'),
+          'gloo-cpu': ('gloo', 'cpu')}
+
+
+def _mesh(name, world=2):
+    from gltvae_torch.parallel.mesh import Mesh
+    backend, device = MESHES[name]
+    return Mesh(rank=0, world=world, device=torch.device(device),
+                backend=backend)
+
+
+@pytest.mark.parametrize('name', list(MESHES))
+def test_jit_with_dp_raises(name):
+    """jit=True on a gloo mesh over CUDA tensors raises and says why (a
+    graph cannot hold gloo's trip through host memory), and its default
+    is eager; NCCL and CPU meshes give JitSteps with jit=True, and by
+    default on a CPU mesh and an NCCL mesh of one rank; an NCCL mesh of
+    two ranks is eager by default. The rule reads only the mesh's record,
+    so no card is needed."""
+    from gltvae_torch.parallel.dp import DataParallel
     model_cfg, train_cfg = configs()
     model = init_model(model_cfg, train_cfg, mu_init(), CPU)
-    with pytest.raises(ValueError, match='ROADMAP Queue 4'):
-        make_train_steps(model, train_cfg, dp=object(), jit=True)
-    steps = make_train_steps(model, train_cfg, dp=object())
-    assert not any(isinstance(s, JitStep) for s in steps)
-    assert all(isinstance(s, JitStep)
-               for s in make_train_steps(model, train_cfg))
+    dp = DataParallel(_mesh(name))
+    if name == 'gloo-cuda':
+        with pytest.raises(ValueError, match='gloo moves CUDA tensors '
+                                             'through host memory'):
+            make_train_steps(model, train_cfg, dp=dp, jit=True)
+        steps = make_train_steps(model, train_cfg, dp=dp)
+        assert not any(isinstance(s, JitStep) for s in steps)
+    else:
+        assert all(isinstance(s, JitStep) for s in make_train_steps(
+            model, train_cfg, dp=dp, jit=True))
+        for world in (1, 2):
+            by_default = make_train_steps(
+                model, train_cfg, dp=DataParallel(_mesh(name, world)))
+            want = name != 'nccl-cuda' or world == 1
+            assert all(isinstance(s, JitStep) == want for s in by_default)
+    assert not any(isinstance(s, JitStep) for s in make_train_steps(
+        model, train_cfg, dp=dp, jit=False))
 
 
-def test_trainer_jit_on_a_mesh_raises():
-    """The Trainer gives the makers' answer: jit=True on a mesh raises,
-    naming the ROADMAP item, before the mesh is touched."""
-    from gltvae_torch.parallel.mesh import Mesh
+@pytest.mark.parametrize('name', ['gloo-cuda', 'gloo-cpu'])
+def test_trainer_jit_on_a_mesh_raises(name):
+    """The Trainer gives the makers' answer: jit=True on a gloo mesh over
+    CUDA tensors raises, saying why, before the mesh is touched; on a CPU
+    mesh (a world of 1, no group) its steps are JitSteps."""
     model_cfg, train_cfg = configs()
-    with pytest.raises(ValueError, match='ROADMAP Queue 4'):
-        Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
-                mesh=Mesh(rank=0, world=2, device=CPU))
+    if name == 'gloo-cuda':
+        with pytest.raises(ValueError, match='a CUDA graph cannot hold'):
+            Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
+                    mesh=_mesh(name))
+        return
+    tr = Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
+                 mesh=_mesh(name, world=1))
+    assert isinstance(tr._sup_step, JitStep)
 
 
 # ------------------------------------------------------------------ (8)

@@ -201,8 +201,9 @@ def test_the_graph_audit_holds_each_capture_to_its_count(monkeypatch,
                            'augment kernel'):
             sup(state, x, y, 1.0)
         assert tally == {'graphs': 0, 'dequant_nodes': 0,
-                         'augment_nodes': 0, 'kinds': {}, 'capture_s': {},
-                         'dump_s': 0.0}
+                         'augment_nodes': 0, 'nccl_nodes': 0,
+                         'collectives': 0, 'mesh_graphs': 0, 'kinds': {},
+                         'capture_s': {}, 'dump_s': 0.0}
 
 
 def _tiny_configs(monkeypatch, tmp_path):

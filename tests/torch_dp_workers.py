@@ -20,6 +20,8 @@ import gltvae_torch.config as tcfg
 SMALL = dict(image_size=16, z_dim=8, y_dim=4, enc_features=(8, 8),
              enc_hidden=16, dec_features=(16, 8))
 B, K, LR = 16, 4, 1e-3
+#: the mixed chunk of the step scenarios
+MASK = [True, False, False, True]
 
 
 def configs(**train):
@@ -77,12 +79,13 @@ def _rows(mesh, a):
 
 def steps(mesh, params: dict, batches: list, kinds: list,
           chunk_mask: list, noise: Optional[list] = None,
-          train: Optional[dict] = None) -> dict:
+          train: Optional[dict] = None, jit: Optional[bool] = None) -> dict:
     """One step of each of `kinds` (True: sup) on `batches` (global (x, y)
     numpy pairs) from `params`, then one mixed chunk over the next
     len(chunk_mask) batches; each step's noise drawn from the state's
-    generator, or the global draws `noise` (one dict a step) injected.
-    Returns each step's metrics and the final state."""
+    generator, or the global draws `noise` (one dict a step) injected;
+    the makers' `jit`. Returns each step's metrics, the final state and
+    whether the steps were captured ones."""
     from gltvae_torch.models.ccvae import CCVAE
     from gltvae_torch.parallel.dp import DataParallel, shard_state
     from gltvae_torch.train import steps as tsteps
@@ -101,8 +104,8 @@ def steps(mesh, params: dict, batches: list, kinds: list,
         tsteps.draw_noise = lambda *a, **k: {
             n: torch.as_tensor(v) for n, v in next(draws).items()}
     try:
-        sup, unsup = tsteps.make_train_steps(model, train_cfg, dp)
-        chunk = tsteps.make_mixed_scan_train_step(model, train_cfg, dp)
+        sup, unsup = tsteps.make_train_steps(model, train_cfg, dp, jit)
+        chunk = tsteps.make_mixed_scan_train_step(model, train_cfg, dp, jit)
         mets = []
         for (x, y), kind in zip(batches, kinds):
             state, m = (sup if kind else unsup)(
@@ -118,7 +121,8 @@ def steps(mesh, params: dict, batches: list, kinds: list,
             mets.append(m)
     finally:
         tsteps.draw_noise = draw
-    return {'metrics': mets, 'state': _state(state)}
+    return {'metrics': mets, 'state': _state(state),
+            'jit_steps': isinstance(sup, tsteps.JitStep)}
 
 
 def shardmap(mesh, params: dict, batch) -> dict:
@@ -166,9 +170,9 @@ def trainer(mesh, local: bool = False, pad: int = 0, epochs: int = 2,
                                    augment_pad=pad)
     lds, mu = loaders(mesh, local, pad)
     kw = dict(device='cpu', mesh=mesh, local_batches=local)
-    if pad and mesh is None:
+    if pad and 'jit' not in trainer_kw:
         # crops made eagerly, so that they can be kept (a captured step
-        # makes them inside its graph); a mesh's steps are eager anyway
+        # makes them inside its graph)
         kw['jit'] = False
     if run_dir is not None:
         kw.update(checkpoint_dir=os.path.join(run_dir, 'checkpoints'),
@@ -374,7 +378,238 @@ def sweep(mesh, batch: int, batches: list) -> list:
     return out
 
 
+def _model(params: dict, train: Optional[dict] = None):
+    from gltvae_torch.models.ccvae import CCVAE
+    model_cfg, train_cfg = configs(**(train or {}))
+    model = CCVAE(model_cfg, mu_init=params['mu'].numpy())
+    model.load_state_dict(params)
+    return model, train_cfg
+
+
+def _fresh_state(mesh, params: dict, train: Optional[dict] = None):
+    """A TrainState from `params`, rank 0's on every rank."""
+    from gltvae_torch.parallel.dp import shard_state
+    from gltvae_torch.train.state import create_train_state
+    model, train_cfg = _model(params, train)
+    return shard_state(create_train_state(model, train_cfg), mesh), train_cfg
+
+
+def _t(mesh, a, stacked: bool = False):
+    """This rank's rows of a global numpy batch (axis 1 when `stacked`),
+    as a tensor."""
+    if stacked:
+        a = a[:, mesh.rows(a.shape[1])]
+    else:
+        a = _rows(mesh, a)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _clone(m: dict) -> dict:
+    return {k: v.clone() for k, v in m.items()}
+
+
+def _graph_data(seed: int = 0) -> dict:
+    """dp_graphs' global data: 8 train batches of B, sup and unsup
+    resident splits of 32 rows, a 35-row eval split (a padding row a rank
+    of 2) and index rows into each."""
+    r = np.random.RandomState(seed)
+    img = lambda n: r.randint(0, 256, (n, 16, 16, 3)).astype(np.uint8)
+    lab = lambda n: (r.rand(n, 4) > 0.5).astype(np.float32)
+    return dict(batches=[(img(B), lab(B)) for _ in range(8)],
+                sup=(img(32), lab(32)), unsup=(img(32), lab(32)),
+                evals=(img(35), lab(35)),
+                idxs=np.stack([r.permutation(32)[:B] for _ in range(4)]),
+                eval_idxs=r.permutation(35)[:2 * B].reshape(2, B))
+
+
+def graph_makers(mesh, params: dict, jit: bool, data: dict) -> dict:
+    """Every data-parallel maker of train/steps.py, the shardmap steps
+    and ``infer.make_predict`` with ``jit``, each from `params` on
+    `data` (``_graph_data``); what each returns."""
+    from gltvae_torch import infer as tinfer
+    from gltvae_torch.parallel.dp import DataParallel, place_resident_split
+    from gltvae_torch.parallel.shardmap import make_shardmap_train_steps
+    from gltvae_torch.train import steps as ts
+    from gltvae_torch.train.state import step_seed
+    dp = DataParallel(mesh)
+    bs = data['batches']
+    stack = lambda part, i: _t(mesh, np.stack([b[i] for b in part]), True)
+    out = {}
+
+    # single steps, a mixed chunk, a uniform chunk
+    state, train_cfg = _fresh_state(mesh, params, dict(perc_supervision=0.5))
+    sup, unsup = ts.make_train_steps(state.model, train_cfg, dp, jit)
+    mixed = ts.make_mixed_scan_train_step(state.model, train_cfg, dp, jit)
+    _, scan_unsup = ts.make_scan_train_steps(state.model, train_cfg, dp, jit)
+    mets = []
+    for (x, y), kind in zip(bs[:3], (True, False, True)):
+        state, m = (sup if kind else unsup)(state, _t(mesh, x), _t(mesh, y),
+                                            1.0)
+        mets.append(_clone(m))
+    for part, fn, extra in ((bs[3:7], mixed, (MASK,)),
+                            (bs[6:8], scan_unsup, ())):
+        state, m = fn(state, stack(part, 0), stack(part, 1), *extra, 1.0)
+        mets.append(m)
+    out['train'] = {'metrics': mets, 'state': _state(state)}
+
+    # resident chunks: this rank's rows of the splits, rows exchanged
+    state, train_cfg = _fresh_state(mesh, params, dict(perc_supervision=0.5))
+    rmixed = ts.make_resident_mixed_scan_train_step(state.model, train_cfg,
+                                                    dp, jit)
+    rsup, _ = ts.make_resident_scan_train_steps(state.model, train_cfg, dp,
+                                                jit)
+    split = {k: place_resident_split(*data[k], mesh) for k in ('sup', 'unsup')}
+    idxs = torch.from_numpy(data['idxs'])
+    state, m1 = rmixed(state, *split['sup'], *split['unsup'], idxs, MASK, 1.0)
+    state, m2 = rsup(state, *split['sup'], idxs[:3], 1.0)
+    out['resident'] = {'metrics': [m1, m2], 'state': _state(state)}
+
+    # eval and ELBO passes, one generator throughout
+    model = _fresh_state(mesh, params)[0].model
+    _, train_cfg = configs()
+    det_cfg = configs(deterministic_eval=True)[1]
+    make = lambda name, cfg=train_cfg: getattr(ts, f'make_{name}')(
+        model, cfg, dp, jit)
+    gen = torch.Generator().manual_seed(3)
+    x0, y0 = (_t(mesh, a) for a in bs[0])
+    xs, ys = (stack(bs[:3], i) for i in (0, 1))
+    ximg, ylab = place_resident_split(*data['evals'], mesh)
+    eidx = torch.from_numpy(data['eval_idxs'])
+    vals = [make('eval_step')(model, x0, y0, gen, 0.7),
+            make('eval_step', det_cfg)(model, x0, y0, gen, 0.7),
+            make('elbo_eval_step')(model, x0, gen, 0.7),
+            make('scan_eval_step')(model, xs, ys, gen, 0.7),
+            make('scan_eval_step', det_cfg)(model, xs, ys, gen, 0.7),
+            make('scan_elbo_step')(model, xs, gen, 0.7),
+            make('resident_eval_step')(model, ximg, ylab, eidx, gen, 0.7),
+            make('resident_elbo_step')(model, ximg, eidx, gen, 0.7)]
+    out['eval'] = {'values': vals, 'generator': gen.get_state()}
+
+    # the shardmap steps (per-rank noise)
+    state, train_cfg = _fresh_state(mesh, params)
+    sm = make_shardmap_train_steps(state.model, train_cfg, mesh, jit)
+    mets = []
+    for (x, y), fn in zip(bs[:2], sm):
+        state, m = fn(state, _t(mesh, x), _t(mesh, y), 1.0)
+        mets.append(_clone(m))
+    out['shardmap'] = {'metrics': mets, 'state': _state(state)}
+
+    # inference: the global batch's probabilities, gathered
+    probs = []
+    for stochastic in (False, True):
+        predict = tinfer.make_predict(model, stochastic, 0.3, dp, jit)
+        for b, (x, _) in enumerate(bs[:2]):
+            g = torch.Generator().manual_seed(step_seed(0, b))
+            probs.append(predict(_t(mesh, x), g))
+    out['infer'] = probs
+    return out
+
+
+#: dp_graphs' Trainer runs (``trainer``'s arguments): chunks of 4 (resident
+#: train and eval), and the augmented path per step and in chunks of 2
+GRAPH_TRAINERS = {'trainer_chunks': dict(steps_per_dispatch=4),
+                  'trainer_augment': dict(pad=2),
+                  'trainer_augment_chunks': dict(pad=2, steps_per_dispatch=2)}
+
+
+def _program_log(log: list):
+    """Log each captured program of this process at its first run (its
+    kind, mask and static inputs' shapes and dtypes: where a card
+    captures it); returns the undo."""
+    import weakref
+    from gltvae_torch.train import graphs
+    call = graphs.Captured.__call__
+    seen = weakref.WeakSet()
+
+    def run(self, owner):
+        if self not in seen:
+            seen.add(self)
+            log.append((type(self).__name__, getattr(self, 'mask', None),
+                        sorted((k, tuple(v.shape), str(v.dtype))
+                               for k, v in vars(self).items()
+                               if isinstance(v, torch.Tensor))))
+        return call(self, owner)
+    graphs.Captured.__call__ = run
+    return lambda: setattr(graphs.Captured, '__call__', call)
+
+
+def dp_graphs(mesh, params: dict) -> dict:
+    """``graph_makers`` and the GRAPH_TRAINERS runs, eagerly
+    (``jit=False``) and on the static-buffer path (``jit=True``, each
+    captured program logged in the order of its first run)."""
+    data = _graph_data()
+    out = {}
+    for jit in (False, True):
+        log = []
+        undo = _program_log(log)
+        try:
+            got = graph_makers(mesh, params, jit, data)
+            for name, kw in GRAPH_TRAINERS.items():
+                got[name] = trainer(mesh, jit=jit, **kw)
+        finally:
+            undo()
+        got['programs'] = log
+        out[jit] = got
+    return out
+
+
+def graphs_vs_gltvae(mesh, params: dict, x, y, noise: list) -> dict:
+    """The captured eval and ELBO steps and ``infer.make_predict``
+    (stochastic) on this rank's rows of the global batch (x, y), each
+    with the global draws `noise` (eval, ELBO, predict) injected."""
+    from gltvae_torch import infer as tinfer
+    from gltvae_torch.parallel.dp import DataParallel
+    from gltvae_torch.train import steps as ts
+    model, train_cfg = _model(params)
+    dp = DataParallel(mesh)
+    draws = iter(noise)
+    take = lambda *a, **k: {n: torch.as_tensor(v)
+                            for n, v in next(draws).items()}
+    real = ts.draw_eval_noise, ts.draw_noise
+    ts.draw_eval_noise = ts.draw_noise = take
+    try:
+        xr, yr = _t(mesh, x), _t(mesh, y)
+        acc = ts.make_eval_step(model, train_cfg, dp, jit=True)(
+            model, xr, yr, None, 0.7)
+        elbo = ts.make_elbo_eval_step(model, train_cfg, dp, jit=True)(
+            model, xr, None, 0.7)
+    finally:
+        ts.draw_eval_noise, ts.draw_noise = real
+    predict = tinfer.make_predict(model, True, 0.3, dp, jit=True)
+    probs = predict(xr, noise=take())
+    return {'acc': acc, 'elbo': elbo, 'probs': probs}
+
+
+def debug_nans_dp(mesh) -> dict:
+    """``debug_nans`` (captured, the static-buffer path) with a count of
+    ``DataParallel.average``'s calls: a NaN on rank 0's weights makes the
+    dispatch and then every rank's op-by-op replay, which must be the
+    data-parallel eager step, one average each."""
+    from gltvae_torch.parallel import dp as pdp
+    calls = [0]
+    real = pdp.DataParallel.average
+
+    def average(self, *a, **k):
+        calls[0] += 1
+        return real(self, *a, **k)
+    pdp.DataParallel.average = average
+    try:
+        from gltvae_torch.train.graphs import JitStep
+        out = debug_nans(mesh)
+        from gltvae_torch.train.loop import Trainer
+        model_cfg, train_cfg = configs()
+        tr = Trainer(model_cfg, train_cfg, mu_init=np.eye(4, dtype=np.float32),
+                     device='cpu', mesh=mesh, debug_nans=True)
+        out['captured'] = isinstance(tr._sup_step.__wrapped__, JitStep)
+    finally:
+        pdp.DataParallel.average = real
+    out['average_calls'] = calls[0]
+    return out
+
+
 SCENARIOS = {'steps': steps, 'sweep': sweep, 'shardmap': shardmap,
              'trainer': trainer, 'trainer_set': trainer_set,
              'debug_nans': debug_nans, 'resume': resume, 'infer': infer,
-             'cli': cli, 'cli_files': cli_files, 'infer_slow': infer_slow}
+             'cli': cli, 'cli_files': cli_files, 'infer_slow': infer_slow,
+             'dp_graphs': dp_graphs, 'graphs_vs_gltvae': graphs_vs_gltvae,
+             'debug_nans_dp': debug_nans_dp}
