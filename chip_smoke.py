@@ -71,7 +71,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     within 1e-4, a second card run writes the same CSV;
 23. the latent traversal of phase 18's model, every latent dim (45 x 8
     images) from z = 0 and the render CLI's z_classify grid from the prior
-    anchor, card vs CPU within 1e-5, each timed; the render CLI's PNG;
+    anchor: the captured decode (``eval/traversal.py``, one CUDA graph a
+    grid) bit-equal to the eager one, card vs CPU within 1e-5, both timed
+    in turns; ``render.traversal`` bit-equal to the captured grid; the
+    render CLI's PNG;
 24. where h5py exists: ``export_h5`` of phase 18's run, ``infer`` from the
     .h5 folder (2 dequant launches, phase 22's CSV byte for byte), and
     ``cli --init-from-h5`` test-only (the checkpoint's params bit for bit,
@@ -186,8 +189,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     kernels apart) from a separate one-epoch run of the same command whose
     dispatches 4-11 are profiled; dequant timed at (1024, 64, 64, 3) and
     (2048, 64, 64, 3). The mesh of one runs captured (the default over
-    NCCL on one rank; past one rank the default is eager), and the step
-    wall is printed beside the eager one recorded on four cards. Each process that fails or outlives 600 s fails the
+    NCCL on one rank; past one rank the default is eager: fault F4), and
+    the step wall is printed beside the eager one recorded on four cards,
+    the profiled figure beside its own window's wall; each launch prints
+    a timestamped line as it starts. Each process that fails or outlives 600 s fails the
     phase (its session killed);
 40. the captured train step (``train/graphs.py``, gltvae's jitted step):
     (a) phase 5's model, 16 steps of the sup 0.5 interleave from one
@@ -203,17 +208,20 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     (``dp_sweep()[0]``, bs 4096, bf16), eager and captured, run in turns:
     the median synchronized step wall of 50 steps, img/s, device ms a
     step and the busy share, host launches a step (``cudaLaunchKernel``,
-    ``cudaGraphLaunch``, ... from torch.profiler), peak memory, the
-    Trainer meter of (c), the card's name and power limit;
+    ``cudaGraphLaunch``, ... from torch.profiler; a captured step at most
+    ``CAPTURED_STEP_LAUNCHES``), peak memory, the Trainer meter of (c),
+    the card's name and power limit;
 41. gltvae's compiled eval, ELBO and multi-step dispatches as CUDA graphs
     (``train/graphs.py``), on cuDNN's deterministic algorithms for
     (a)-(d): (a) phase 5's and phase 13's models, eval and ELBO passes
     over 512-image valid and test splits, resident epochs and chunked
     passes of 4 batches, stochastic and deterministic, captured against
     eager: values and the eval generator's state after bit-equal, dequant
-    launches n a replay, and draws into static slices equal to fresh
-    draws; (b) both models, 16 steps of the interleave in chunks of 4, 4,
-    4, 3 and 1 (three mask patterns), shipped and gathered from resident
+    launches n a replay, draws into static slices equal to fresh draws,
+    and the raw draws' gate uniforms made Gumbels (``steps.gate_gumbels``,
+    as the graphs make them) equal to the Gumbel draws; (b) both models,
+    16 steps of the interleave in chunks of 4, 4, 4, 3 and 1 (three mask
+    patterns), shipped and gathered from resident
     splits, and as 16 captured single steps, each against 16 eager steps
     (bit-equal, or else within ``F32_TOL`` / ``BF16_TOL`` with the gaps
     printed); (c) phase 9's augmented steps, per step and chunked at n =
@@ -225,14 +233,16 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     and in chunks of 4), a chunk of 4 plain steps, of 4 sweep steps and an
     augmented step, each eager, as per-batch or per-step replays and as
     one graph (median synchronized wall, img/s, device ms, busy, host
-    launches, peak memory, the card), then phase 5's Trainer meter
-    captured and eager on the default algorithms; (f) the tally of the
+    launches, peak memory, the card), then
+    phase 5's Trainer meter captured and eager on the default
+    algorithms; (f) the tally of the
     graph audit (``audit_graphs``);
 42. gltvae's compiled mesh dispatches: the data-parallel steps, chunks,
     eval and ELBO passes and inference as CUDA graphs with the NCCL
     collectives inside, on ranks spawned one a card (a mesh of one over
     NCCL; with ``--sweep-only`` on 2 or more cards also D = 2 and
-    min(cards, 4)), each killed after 600 s; (a)-(c) on cuDNN's
+    min(cards, 4)), each killed after 600 s and each printing a
+    timestamped line as it starts a leg; (a)-(c) on cuDNN's
     deterministic algorithms: (a) phase 5's model, 16 steps of the
     interleave as single steps, as chunks of 4, 4, 4, 3 and 1 (shipped,
     and gathered from resident splits through ``gather_rows``) and as the
@@ -280,6 +290,7 @@ copies its results, report and walls to DIR. Run artifacts go to
 build/chip_smoke*/.
 """
 
+import functools
 import json
 import math
 import os
@@ -288,6 +299,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -671,7 +683,10 @@ def audit_graphs():
     tally = {'graphs': 0, 'dequant_nodes': 0, 'augment_nodes': 0,
              'nccl_nodes': 0, 'collectives': 0, 'mesh_graphs': 0,
              'kinds': {}, 'capture_s': {}, 'dump_s': 0.0}
-    dump = os.path.join(ROOT, 'build', 'graph_audit.dot')
+    # one file a process: the ranks of a mesh capture the same graphs at
+    # the same moment, and a shared file let one rank read or remove
+    # another's dump
+    dump = os.path.join(ROOT, 'build', f'graph_audit_{os.getpid()}.dot')
     os.makedirs(os.path.dirname(dump), exist_ok=True)
 
     def capture(fn, pool, error_mode='global'):
@@ -1173,26 +1188,55 @@ def serving_phases(dev, smi, celeba):
     ns = infer.parse_args(['--checkpoint', run_dir, '--images', '.'])
     cfg = infer.resolve_model_config(ns)
     models = {d: infer.load_model(ns, cfg, d) for d in (dev, cpu)}
-    fns = {}
-    for d, m in models.items():
-        full = make_traversal_fn(m)                 # every latent dim
-        z0 = torch.zeros(cfg.z_dim, device=d)
-        fns[d] = {'all dims, z=0': lambda f=full, z=z0: f(z),
-                  'z_classify, prior': lambda m=m: render.traversal(
-                      m, anchor='prior')}
-    gaps, ms = {}, {}
-    for name, fn in fns[dev].items():
-        got, want = fn().cpu(), fns[cpu][name]()
-        check(got.shape == want.shape and torch.isfinite(got).all()
-              and got.shape[2:] == (cfg.image_size, cfg.image_size, 3),
-              f'traversal {name}: shape {tuple(got.shape)}')
-        gaps[name] = (tuple(got.shape), float((got - want).abs().max()))
-        ms[name] = median_ms(fn, dev)
+
+    def grids(m, d, jit):
+        """Both grids of `m` on `d`, each a traversal made once: every
+        latent dim from z = 0, and render's z_classify rows from the prior
+        anchor."""
+        anchors = {'all dims, z=0': (None, torch.zeros(cfg.z_dim, device=d)),
+                   'z_classify, prior': (list(range(cfg.z_style, cfg.z_dim)),
+                                         render.prior_anchor(m, (), 0))}
+        return {k: functools.partial(make_traversal_fn(m, dims=dims,
+                                                       jit=jit), z)
+                for k, (dims, z) in anchors.items()}
+    gaps, got = {}, {}
+    # compared on cuDNN's deterministic algorithms, as phases 40-42 compare
+    # (on the default ones cuDNN may pick another algorithm for a capture)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fns = {'graph': grids(models[dev], dev, True),
+               'eager': grids(models[dev], dev, False),
+               'cpu': grids(models[cpu], cpu, False)}
+        for name in fns['graph']:
+            got[name] = fns['graph'][name]().cpu()  # the first call captures
+            eager, want = fns['eager'][name]().cpu(), fns['cpu'][name]()
+            check(got[name].shape == want.shape
+                  and torch.isfinite(got[name]).all()
+                  and got[name].shape[2:] == (cfg.image_size,
+                                              cfg.image_size, 3),
+                  f'traversal {name}: shape {tuple(got[name].shape)}')
+            check(torch.equal(got[name], eager), f'traversal {name}: the '
+                  f'graph differs from the eager decode (max abs '
+                  f'{float((got[name] - eager).abs().max()):.3e})')
+            gaps[name] = (tuple(got[name].shape),
+                          float((got[name] - want).abs().max()))
+        check(torch.equal(render.traversal(models[dev], anchor='prior').cpu(),
+                          got['z_classify, prior']),
+              'render.traversal differs from the z_classify grid')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     check(gaps['all dims, z=0'][0][:2] == (cfg.z_dim, 8)
           and gaps['z_classify, prior'][0][:2] == (cfg.z_classify, 8),
           f'traversal grids {gaps}')
     check(all(g <= 1e-5 for _, g in gaps.values()),
           f'traversal card vs CPU over 1e-5: {gaps}')
+    # timed on the default algorithms, each form made anew
+    timed = {how: grids(models[dev], dev, how == 'graph')
+             for how in ('graph', 'eager')}
+    ms = {name: {how: median_ms(timed[how][name], dev)
+                 for how in ('eager', 'graph', 'graph', 'eager')}
+          for name in got}
     png = os.path.join(build, 'chip_smoke_traversal.png')
     render.main(['--mode', 'traversal', '--anchor', 'prior', '--checkpoint',
                  run_dir, '--out', png, '--device', str(dev)])
@@ -1202,14 +1246,19 @@ def serving_phases(dev, smi, celeba):
                         8 * cfg.image_size, 3), f'render PNG {png_shape}')
     phase(23, f'traversal on the card and the CPU from the phase-18 '
               f'weights: ' + '; '.join(
-                  f'{k} {s[0] * s[1]} images, max abs {g:.3e}'
+                  f'{k} {s[0] * s[1]} images, the graph bit-equal to the '
+                  f'eager decode, card vs CPU max abs {g:.3e}'
                   for k, (s, g) in gaps.items())
-          + f' (tol 1e-5); render PNG {png_shape}')
+          + f' (tol 1e-5; on cuDNN\'s deterministic algorithms); '
+            f'render.traversal (its own graph) bit-equal to the z_classify '
+            f'grid; render PNG {png_shape}')
     print('slice_traversal: ' + '; '.join(
-        f'{k} {gaps[k][0][0] * gaps[k][0][1]} images {v:.3f} ms per grid'
+        f'{k} {gaps[k][0][0] * gaps[k][0][1]} images eager '
+        f'{v["eager"]:.3f} ms, graph {v["graph"]:.3f} ms per grid'
         for k, v in ms.items())
-        + f' (median of 20 synchronized calls after 3); card {smi}',
-        flush=True)
+        + f' (median of 20 synchronized calls after 3, the later of two '
+          f'turns eager, graph, graph, eager, on the default algorithms); '
+          f'card {smi}', flush=True)
 
     # ------------------------------------------------------------- 24
     try:
@@ -3057,9 +3106,15 @@ def dp_cli_rank(report_dir, argv, profiled=False):
     stamps, trainers, final, tables, written = [], [], {}, [], []
     prof = None
 
+    # the profiled window's first and last stamps wait for the card, so
+    # its wall holds all of its dispatches' device work
+    bounds = {first - 1, first - 1 + n_prof}
+
     def on_step(fn):
         def run(self, n):
             fn(self, n)
+            if prof is not None and len(stamps) in bounds:
+                torch.cuda.synchronize(dev)
             stamps.append(time.time())
             if prof is not None:
                 prof.step()
@@ -3114,6 +3169,10 @@ def dp_cli_rank(report_dir, argv, profiled=False):
                   written=own, stamps=stamps,
                   result={str(k): v for k, v in result.items()},
                   profile=tables[0] if tables else None)
+    if tables:      # the wall of the profiled dispatches, on the same stamps,
+        # synchronized at both ends
+        report['profile']['window_wall_ms'] = (
+            stamps[first - 1 + n_prof] - stamps[first - 1]) / n_prof * 1e3
     with open(os.path.join(report_dir, f'rank{rank}.json'), 'w') as f:
         json.dump(report, f)
 
@@ -3147,6 +3206,15 @@ def run_bounded(cmd, log_path, timeout_s):
                      + ('timed out after %.0f s' % timeout_s if rc is None
                         else f'exited {rc}'))
     return time.perf_counter() - t0
+
+
+def kept_log(name):
+    """The path of log `name` in the checkout's ``chiprun_out/
+    chip_smoke_logs``, which a chip call brings back (a torchrun log holds
+    every rank's lines)."""
+    keep = os.path.join(ROOT, 'chiprun_out', 'chip_smoke_logs')
+    os.makedirs(keep, exist_ok=True)
+    return os.path.join(keep, name)
 
 
 def torchrun(world, *cmd):
@@ -3221,11 +3289,16 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
 
     def launch(world, rep, argv, profiled=False):
         os.makedirs(rep)
+        print(f'  phase 39 launch, {time.strftime("%H:%M:%S")}: '
+              f'{os.path.basename(rep)} ({world or 1} process(es)'
+              f'{", profiled" if profiled else ""})', flush=True)
         cmd = [SCRIPT, '--dp-cli-rank', rep,
                *(['--profiled'] if profiled else []), *argv]
         t0 = time.time()
         s = run_bounded(torchrun(world, *cmd) if world else
-                        [sys.executable, *cmd], rep + '.log', DP_CLI_TIMEOUT)
+                        [sys.executable, *cmd],
+                        kept_log(os.path.basename(rep) + '.log'),
+                        DP_CLI_TIMEOUT)
         reports = []
         for r in range(world or 1):
             with open(os.path.join(rep, f'rank{r}.json')) as f:
@@ -3357,7 +3430,7 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
                                      *base, '--batch-size',
                                      str(DP_CLI_INFER_BS), '--mesh',
                                      '--output', mesh_csv),
-                            os.path.join(root, f'infer_d{world}.log'),
+                            kept_log(f'infer_d{world}.log'),
                             DP_CLI_TIMEOUT)
 
         def one_process(bs):
@@ -3437,6 +3510,8 @@ def dp_cli_speed(reports, t0, steps, batch, result, profs=None):
                     'device_ms_per_dispatch', 0.0),
                 launches_per_step=slow and slow['all'][
                     'launches_per_dispatch'],
+                profiled_dispatches=slow and slow['all']['dispatches'],
+                profiled_wall_ms=slow and slow.get('window_wall_ms'),
                 spawn_to_first_step_s=max(r['stamps'][0] for r in reports)
                 - t0)
 
@@ -3445,11 +3520,15 @@ def dp_cli_line(label, sp, smi):
     """The printed speed line of one phase-39 run."""
     dev = ('not measured (no card)' if sp['device_ms_per_step'] is None
            else f'{sp["device_ms_per_step"]:.3f} ms a step on the slowest '
-                f'card ({sp["device_ms_per_step"] / sp["step_wall_ms"]:.1%} '
-                f'of the step wall), NCCL {sp["nccl_ms_per_step"]:.3f} of '
-                f'it, {sp["launches_per_step"]:.0f} launches (a one-epoch '
-                f'run, dispatches {DP_CLI_PROFILE[0]}-'
-                f'{sum(DP_CLI_PROFILE) - 1} profiled)')
+                f'card over the {sp["profiled_dispatches"]} dispatches '
+                f'{DP_CLI_PROFILE[0]}-{sum(DP_CLI_PROFILE) - 1} of a '
+                f'one-epoch run, whose own wall is '
+                f'{sp["profiled_wall_ms"]:.3f} ms a dispatch '
+                f'({sp["device_ms_per_step"] / sp["profiled_wall_ms"]:.1%} '
+                f'busy; {sp["device_ms_per_step"] / sp["step_wall_ms"]:.1%} '
+                f'of the unprofiled step wall), NCCL '
+                f'{sp["nccl_ms_per_step"]:.3f} of it, '
+                f'{sp["launches_per_step"]:.0f} kernels a dispatch')
     return (f'slice_dp_cli {label}: trainer meter '
             f'{sp["meter_images_per_sec"]:.0f} img/s (epochs '
             f'{", ".join(f"{e:.2f}" for e in sp["epoch_s"])} s); step wall '
@@ -3470,6 +3549,11 @@ LAUNCH_APIS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
 #: Phase 40's steps: 16 of the sup 0.5 interleave (sup on even steps), the
 #: gating temperature decayed once halfway, as at an epoch's end.
 GRAPH_STEPS = 16
+
+#: the most host launches a captured train step may make (phase 40 (d)):
+#: its host part draws z's normals, the two gate uniforms and eps_k or u_y
+#: (4 launches), fills the temperature and alpha and copies the batch in
+CAPTURED_STEP_LAUNCHES = 20
 #: Phase 40's timed steps a speed line (after 4 warm-up steps), and the
 #: profiled steps after them.
 SPEED_STEPS, SPEED_PROFILED = 50, 10
@@ -3827,6 +3911,11 @@ def graphs_phase(dev, smi):
                        card=smi)
             out['speed'][f'{label}_{rec["mode"]}'] = rec
             print('graphs_speed: ' + json.dumps(rec), flush=True)
+            check(not jit or rec['host_launches_total']
+                  <= CAPTURED_STEP_LAUNCHES,
+                  f'(d) the captured {label} step: '
+                  f'{rec["host_launches_total"]} host launches a step, '
+                  f'over {CAPTURED_STEP_LAUNCHES}')
         del batches
     phase(40, f'(d) speed of the plain step (bs {BATCH}, f32) and the '
               f'sweep step ({name}, bs {SWEEP_BATCH}, bf16), eager and '
@@ -3927,21 +4016,35 @@ def eval_legs(model_cfg, train_cfg, mu, splits, dev, n=4, mesh=None):
               for a, b in zip(eager['vals'], capt['vals']))
     gap_rel = max(float(((a - b).abs() / a.abs().clamp_min(1e-6)).max())
                   for a, b in zip(eager['vals'], capt['vals']))
-    # a draw straight into a slice of a static buffer equals a fresh one
+    # a draw straight into a slice of a static buffer equals a fresh one,
+    # Gumbels and raw uniforms alike; the raw draw's uniforms made Gumbels
+    # (as the device parts make them) equal the Gumbel draw, and the
+    # generator ends where it does
     draws_equal = True
-    for draw in (lambda gen, out=None: ts.draw_eval_noise(model, BATCH, gen,
-                                                          out=out),
-                 lambda gen, out=None: ts.draw_noise(model, BATCH, False, 0,
-                                                     gen, out=out)):
-        a, b = (torch.Generator(device=dev).manual_seed(5) for _ in 'ab')
-        fresh = draw(a)
-        bufs = {k: torch.empty((3,) + tuple(v.shape), dtype=v.dtype,
-                               device=dev) for k, v in fresh.items()}
-        into = draw(b, {k: v[1] for k, v in bufs.items()})
-        draws_equal &= all(torch.equal(fresh[k], into[k])
-                           and into[k].data_ptr() == bufs[k][1].data_ptr()
-                           for k in fresh)
-        draws_equal &= torch.equal(a.get_state(), b.get_state())
+    for fn, args in ((ts.draw_eval_noise, (model, BATCH)),
+                     (ts.draw_noise, (model, BATCH, False, 0))):
+        def draw(gen, out=None, raw=False, fn=fn, args=args):
+            return fn(*args, gen, out=out, **({'raw': True} if raw else {}))
+        # a draw put in the module's place may not take `raw`
+        raws = ((False, True) if ts.draw_form(fn) == 'uniform'
+                else (False,))
+        for raw in raws:
+            a, b = (torch.Generator(device=dev).manual_seed(5) for _ in 'ab')
+            fresh = draw(a, raw=raw)
+            bufs = {k: torch.empty((3,) + tuple(v.shape), dtype=v.dtype,
+                                   device=dev) for k, v in fresh.items()}
+            into = draw(b, {k: v[1] for k, v in bufs.items()}, raw)
+            draws_equal &= all(torch.equal(fresh[k], into[k])
+                               and into[k].data_ptr() == bufs[k][1].data_ptr()
+                               for k in fresh)
+            draws_equal &= torch.equal(a.get_state(), b.get_state())
+        if True in raws:
+            a, b = (torch.Generator(device=dev).manual_seed(5)
+                    for _ in 'ab')
+            gumbel, made = draw(a), ts.gate_gumbels(draw(b, raw=True))
+            draws_equal &= gumbel.keys() == made.keys() and all(
+                torch.equal(gumbel[k], made[k]) for k in gumbel)
+            draws_equal &= torch.equal(a.get_state(), b.get_state())
     del model
     return dict(equal=bool(equal), gap=gap, gap_rel=gap_rel,
                 draws_equal=bool(draws_equal),
@@ -4198,7 +4301,8 @@ def dispatch_phase(dev, smi, audited=None):
                       f'captured eval/ELBO values or the eval generator '
                       f'differ from eager (max abs {res["gap"]:.3e})')
                 check(res['draws_equal'], f'(a) {key} px: draws into '
-                      f'static slices differ from fresh draws')
+                      f'static slices differ from fresh draws, or the raw '
+                      f'uniforms\' Gumbels from the Gumbel draws')
                 check(eager == capt == res['batches'][0],
                       f'(a) {key} px: dequant launches {eager} eager, '
                       f'{capt} captured, for {res["batches"][0]} batches')
@@ -4210,7 +4314,9 @@ def dispatch_phase(dev, smi, audited=None):
                           f'twice, captured bit-equal to eager (values and '
                           f'the eval generator after); dequant launches '
                           f'{capt} captured (n a replay) = {eager} eager; '
-                          f'draws into static slices equal fresh draws')
+                          f'draws into static slices equal fresh draws, '
+                          f'the raw uniforms made Gumbels equal the Gumbel '
+                          f'draws (the graphs\' gate transforms)')
             del splits
 
         # (b) chunks
@@ -4563,6 +4669,13 @@ def dp_graphs_speed_record(world, label, mode, batch, dtype, per_rank, smi):
                 units=r0['units'], profiled_units=r0['profiled'], card=smi)
 
 
+def rank_mark(n, mesh, text):
+    """A rank of phase `n` says, flushed and timestamped, that it starts
+    `text`, so that a run cut at its limit shows where each rank stood."""
+    print(f'[phase {n}] {time.strftime("%H:%M:%S")} rank {mesh.rank} of '
+          f'{mesh.world}: starting {text}', flush=True)
+
+
 def mesh_graphs_work(mesh, dev, cfgs, photos):
     """Phase 42 (a)-(c) on this rank, on cuDNN's deterministic
     algorithms: (a) phase 5's model, GRAPH_STEPS steps of the interleave
@@ -4578,6 +4691,7 @@ def mesh_graphs_work(mesh, dev, cfgs, photos):
     from gltvae_torch.ops.gating import cooccurrence_gating_matrix
     from gltvae_torch.train.graphs import Crop
     out = {}
+    rank_mark(42, mesh, '(a) steps, chunks, resident, shardmap and no-mesh')
     model_cfg, train_cfg = cfgs['plain']
     batches = graph_batches(model_cfg.image_size, model_cfg.y_dim,
                             GRAPH_STEPS, dev)
@@ -4604,6 +4718,7 @@ def mesh_graphs_work(mesh, dev, cfgs, photos):
     del runs, batches
 
     # (b) eval and ELBO passes; the augmented steps and chunks
+    rank_mark(42, mesh, '(b) eval/ELBO passes and the augmented steps')
     splits = eval_splits(model_cfg, dev)
     mu_e = cooccurrence_gating_matrix(splits[0][1].cpu().numpy())
     out['b_eval'] = {det: eval_legs(model_cfg, dataclasses.replace(
@@ -4643,6 +4758,7 @@ def mesh_graphs_work(mesh, dev, cfgs, photos):
     del runs, pad_b
 
     # (c) inference
+    rank_mark(42, mesh, '(c) inference')
     out['c'] = mesh_infer_legs(model_cfg, train_cfg, mu, photos, dev, mesh)
     return out
 
@@ -4686,15 +4802,28 @@ def mesh_graphs_rank(rank, world, url, devices, cfgs, photos, out_dir, root,
             out = mesh_graphs_work(mesh, dev, cfgs, photos)
         finally:
             torch.backends.cudnn.deterministic = deterministic
+        rank_mark(42, mesh, '(e) mesh_speed')
         out['speed'] = mesh_speed(cfgs, dev, mesh)
         out['audit'] = audited
         out['backend'] = mesh.backend
         torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
         if world > 1:       # a rank that hangs leaving its group shows
-            print(f'[phase 42] rank {rank} of {world}: saved, leaving the '
-                  f'group', flush=True)
+            print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
+                  f'{world}: saved, leaving the group', flush=True)
+    except BaseException:
+        # shown now: a rank that fails while its peers wait in a collective
+        # can block in leaving the group, and its error would show only
+        # at its exit
+        print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
+              f'{world} failed:', flush=True)
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
     finally:
         pmesh.shutdown()
+    if world > 1:
+        print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
+              f'{world}: left the group', flush=True)
 
 
 def mesh_graphs_report(world, ranks, smi, cfgs, spawn_s):

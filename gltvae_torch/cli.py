@@ -33,7 +33,9 @@ process a mesh run. The global batch is ``-bs``; each rank's loaders are
 host-sharded and decode only its rows; rank 0 writes the run's files.
 On an NCCL mesh of one rank every dispatch is a CUDA graph with its
 collectives inside, as on one device (``train/graphs.py``); on more
-ranks the dispatches are eager (``train/steps.py::resolve_jit``).
+ranks the dispatches are eager (``train/steps.py::resolve_jit``: the
+captured CLI at two ranks did not finish on four cards, fault F4, its
+cause not yet known).
 
 It takes train.py's flags but ``--prng`` and the compilation-cache flags;
 ``--device`` stands for ``--platform``.

@@ -149,7 +149,8 @@ def make_predict(model, stochastic: bool, temp: float, dp=None,
     """predict(x_u8, generator=None, noise=None) -> probabilities [B, y]:
     the dequant kernel's divide form, then ``predict_probs`` (the shared
     eval protocol). The stochastic draws come from `generator`, or from
-    `noise` (eps_z, g1, g2) when given. With `dp` (a ``parallel.dp.
+    `noise` (eps_z with the gate Gumbels g1, g2 or their uniforms u1, u2)
+    when given. With `dp` (a ``parallel.dp.
     DataParallel``), x_u8 is this rank's rows of a global batch, the draws
     are the global batch's (`noise` too) of which the rank keeps its rows,
     and the probabilities of the global batch come back, gathered over the
@@ -158,39 +159,48 @@ def make_predict(model, stochastic: bool, temp: float, dp=None,
     Captured by ``train/steps.py``'s rule (``resolve_jit``; tools/infer.py
     jits its forward on one device and on the mesh): the forward, with the
     gather on a mesh, is a CUDA graph over a static uint8 batch, one a
-    batch shape (the wrap-around tail batch keeps the one shape), and the
-    draws go into its static buffers; on the CPU the same static-buffer
-    path runs eagerly. ``jit=False`` gives the eager forward."""
+    batch shape (the wrap-around tail batch keeps the one shape) and noise
+    form (``graphs.noise_form``): the host part draws z's normals and the
+    gate uniforms into its static buffers and the graph makes the Gumbels,
+    while given or injected Gumbels have a graph of their own. On the CPU
+    the same static-buffer path runs eagerly. ``jit=False`` gives the
+    eager forward."""
     from gltvae_torch.models.ccvae import Temps
     from gltvae_torch.ops.preprocess import dequant
-    from gltvae_torch.train.graphs import CapturedPass, graph_pool
-    from gltvae_torch.train.steps import draw_eval_noise, resolve_jit
+    from gltvae_torch.train.graphs import CapturedPass, graph_pool, noise_form
+    from gltvae_torch.train import steps
     world = 1 if dp is None else dp.mesh.world
     temps = Temps(gating=temp)
 
     def forward(x_u8, noise, generator=None):
-        """The device part: `noise` the global batch's draws, or None."""
+        """The device part: `noise` the global batch's draws (the gate
+        uniforms made Gumbels here), or None."""
         x = dequant(x_u8, 'div')
+        noise = steps.gate_gumbels(noise)
         if noise is not None and dp is not None:
             noise = dp.rows_of(noise)
         probs = model.predict_probs(x, temps, deterministic=not stochastic,
                                     noise=noise, generator=generator)
         return probs if dp is None else dp.mesh.all_gather(probs)
 
-    if not resolve_jit(jit, dp):
+    if not steps.resolve_jit(jit, dp):
         @torch.no_grad()
         def predict(x_u8, generator=None, noise=None):
             if stochastic and noise is None and dp is not None:
-                noise = draw_eval_noise(model, len(x_u8) * world, generator)
+                noise = steps.draw_eval_noise(model, len(x_u8) * world,
+                                              generator)
             return forward(x_u8, noise, generator)
         return predict
 
     device = model.mu.device
     pool = graph_pool(device)
+    draws = steps.PassDraws()
     passes = {}
 
     def predict(x_u8, generator=None, noise=None):
-        key = (tuple(x_u8.shape), x_u8.dtype)
+        form = None if not stochastic else (
+            draws.form if noise is None else noise_form(noise))
+        key = (tuple(x_u8.shape), x_u8.dtype, form)
         p = passes.get(key)
         if p is None:
             p = passes[key] = CapturedPass(
@@ -201,8 +211,7 @@ def make_predict(model, stochastic: bool, temp: float, dp=None,
         p.load(x_u8[None], None)
         if stochastic:
             if noise is None:
-                noise = draw_eval_noise(model, p.batch, generator,
-                                        out=p.noise.out(0))
+                noise = draws(model, p.batch, generator, out=p.noise.out(0))
             p.noise.fill(0, noise)
         return p(model)['value'][0]
     return predict

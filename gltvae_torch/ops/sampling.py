@@ -20,15 +20,22 @@ def clip_passthrough(x, lo, hi):
     return torch.where(x < lo, lo, torch.where(x > hi, hi, x))
 
 
+def gumbel_from_uniform(u, eps=1e-20):
+    """g = -log(-log(u + ε) + ε) of uniforms `u`, as a new tensor: the
+    transform of ``sample_gumbel`` (a captured program runs it on the
+    uniforms its host part drew)."""
+    return -torch.log(-torch.log(u + eps) + eps)
+
+
 def sample_gumbel(shape, generator=None, eps=1e-20, dtype=torch.float32,
                   device=None, out=None):
-    """g = -log(-log(U + ε) + ε), U ~ Uniform[0,1): a new tensor, or drawn
-    and transformed in place in `out` (the same ops on the same values,
-    so the same bits)."""
+    """g = -log(-log(U + ε) + ε), U ~ Uniform[0,1): the draw, then
+    ``gumbel_from_uniform``; or both in place in `out` (the same ops on
+    the same values, so the same bits)."""
     if out is None:
-        u = torch.rand(shape, generator=generator, dtype=dtype,
-                       device=device)
-        return -torch.log(-torch.log(u + eps) + eps)
+        return gumbel_from_uniform(torch.rand(shape, generator=generator,
+                                              dtype=dtype, device=device),
+                                   eps)
     torch.rand(shape, generator=generator, out=out)
     return out.add_(eps).log_().neg_().add_(eps).log_().neg_()
 

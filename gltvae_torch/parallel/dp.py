@@ -36,9 +36,11 @@ parallel makers; ``steps.resolve_jit``'s rule): over NCCL each rank's
 dispatch is one CUDA graph with its collectives inside
 (``train/graphs.py``). For that the host part
 (``draws``; an eval or ELBO pass's ``steps.draw_eval_noise`` and
-``draw_noise`` with ``out=``) draws the global batch's noise into
-global-size static buffers, and the device part reads this rank's rows
-as views (``rows_of``); ``average``,
+``draw_noise`` with ``out=``) draws the global batch's raw variates into
+global-size static buffers (the gates' uniforms, not their Gumbels), and
+the device part turns the two gate uniforms into Gumbels in full (every
+rank reads all of μ's Gumbels: ``steps.gate_gumbels``) and reads this
+rank's rows of the rest as views (``rows_of``); ``average``,
 ``mean``, ``mean_rows`` and ``gather_rows`` read nothing back to the
 host, so they run inside the graph as they are.
 
@@ -83,16 +85,16 @@ class DataParallel:
         self.mesh = mesh
 
     def draws(self, state: TrainState, b: int, supervised: bool, k: int,
-              noise: Optional[dict] = None, out: Optional[dict] = None
-              ) -> dict:
+              noise: Optional[dict] = None, out: Optional[dict] = None,
+              **kw) -> dict:
         """What a step's host part draws: the global batch's draws for `b`
         rows a rank, `noise` when given, else drawn from the step's
-        generator (into `out`, buffers of the global shapes, when
-        given)."""
+        generator (into `out`, buffers of the global shapes, when given;
+        ``steps.draw_noise``, which takes `kw`)."""
         if noise is None:
             noise = _steps.draw_noise(state.model, b * self.mesh.world,
                                       supervised, k, state.next_generator(),
-                                      out=out)
+                                      out=out, **kw)
         return noise
 
     def rows_of(self, noise: dict) -> dict:

@@ -11,7 +11,8 @@ the one-device run at the same global batch by its draws, so it is held
 to that run statistically (tests/test_torch_dp.py: loss within 5%, params
 within 2·lr), not bit for bit. Like gltvae's jitted shard_map step, the
 steps are captured where ``make_train_steps``' are: the host part draws
-this rank's noise into the graph's static buffers.
+this rank's raw variates into the graph's static buffers, and the graph
+turns the gate uniforms into Gumbels.
 """
 
 from __future__ import annotations
@@ -30,17 +31,17 @@ class _RankNoise(DataParallel):
     """DataParallel whose noise is drawn per rank."""
 
     def draws(self, state: TrainState, b: int, supervised: bool, k: int,
-              noise: Optional[dict] = None, out: Optional[dict] = None
-              ) -> dict:
+              noise: Optional[dict] = None, out: Optional[dict] = None,
+              **kw) -> dict:
         """`noise` when given (this rank's own), else this rank's draws
-        from the step's seed folded with the rank (into `out` when
-        given)."""
+        from the step's seed folded with the rank (into `out` when given;
+        ``draw_noise``, which takes `kw`)."""
         if noise is not None:
             return noise
         gen = torch.Generator(device=state.device)
         gen.manual_seed(step_seed(step_seed(state.seed, state.step),
                                   self.mesh.rank))
-        return draw_noise(state.model, b, supervised, k, gen, out=out)
+        return draw_noise(state.model, b, supervised, k, gen, out=out, **kw)
 
     def rows_of(self, noise: dict) -> dict:
         """The draws are this rank's own already."""

@@ -8,15 +8,16 @@ split in two:
 
 - the host part (train/steps.py): the draws, made eagerly from their
   generators straight into the program's static buffers (a train step's
-  noise from its per-step generator, its augment offsets from
-  ``step_seed(seed + 2, step)``, an eval pass's noise from the one eval
-  generator, batch by batch); the Adam count and its ``alpha``;
-  ``state.step``;
-- the device part: the input stage (the row gather of a resident split,
-  the augment or the dequant kernel), the forward pass, and for training
-  ``torch.autograd.grad``, Keras Adam in place and the metrics. It reads
-  nothing back to the host, so on a CUDA device it is captured once as a
-  CUDA graph and replayed at every dispatch.
+  raw noise from its per-step generator, its augment offsets from
+  ``step_seed(seed + 2, step)``, an eval pass's raw noise from the one
+  eval generator, batch by batch; raw: the gates' uniforms, not their
+  Gumbels); the Adam count and its ``alpha``; ``state.step``;
+- the device part: the gate Gumbels from their uniforms
+  (``steps.gate_gumbels``), the input stage (the row gather of a resident
+  split, the augment or the dequant kernel), the forward pass, and for
+  training ``torch.autograd.grad``, Keras Adam in place and the metrics.
+  It reads nothing back to the host, so on a CUDA device it is captured
+  once as a CUDA graph and replayed at every dispatch.
 
 ``Captured`` is what every such program shares: static inputs, which the
 host part fills before each run, so every value that changes from run to
@@ -37,6 +38,11 @@ kernels' launch counts. Three kinds build on it:
   stacked, or gathered from a resident split: a resident eval epoch is
   one replay). It reads the model's parameters in place and writes
   nothing back.
+
+Each kind keys its programs by the form of the noise too ('uniform', the
+raw draws; 'gumbel', Gumbels given or injected), so injected Gumbels run a
+program of their own. eval/traversal.py's ``CapturedTraversal`` (the grid
+and decode of a latent traversal) builds on ``Captured`` as well.
 
 A train graph updates the state's params and Adam moments in place, so
 whatever replaces them must write into them (``TrainState.
@@ -63,8 +69,9 @@ capturable``); the warm-up's collectives, eager on the side stream, make
 the communicator first. Every rank captures the same programs in the same
 order, since every rank runs the same schedule (the same mask patterns,
 the same short last chunk), and so replays them in the same order. The
-host part draws the global batch's noise into a global-size static slot,
-and the device part reads this rank's rows of it as views; a padded
+host part draws the global batch's raw noise into a global-size static
+slot, and the device part makes the gate Gumbels in full (every rank reads
+all of them) and reads this rank's rows of the rest as views; a padded
 batch's crops are this rank's rows of the global batch's draws
 (``Crop``). Every program takes the mesh as its ``dp`` (a
 ``parallel.dp.DataParallel``, None on one device), from which it derives
@@ -304,6 +311,12 @@ class Captured:
         return _clone(self.outputs)
 
 
+def noise_form(noise: dict) -> str:
+    """The form of a dispatch's noise, which picks its captured program:
+    'uniform' (the gate uniforms u1, u2) or 'gumbel' (the Gumbels g1, g2)."""
+    return 'uniform' if 'u1' in noise else 'gumbel'
+
+
 class _Noise:
     """Static noise buffers: a dict of tensors per slot (a step or a
     batch), made at the first fill from the first draws."""
@@ -410,9 +423,13 @@ class JitStep:
     by a ``CapturedStep`` for each (x, y) shape and dtype. ``gathered``
     takes the batch as rows of a device-resident split instead.
 
-    `host` is the host part, ``(state, b, noise, out=None) -> noise``: the
-    step's draws at ``state.step`` (`noise` when given), drawn into `out`
-    (a slot of static buffers) when given.
+    `host` is the host part, ``(state, b, noise, out=None) -> noise``:
+    the step's draws at ``state.step`` (`noise` when given), drawn into
+    `out` (a slot of static buffers) when given; ``host.form`` is the form
+    of its draws, 'uniform' (the gate uniforms, which the device part
+    turns into Gumbels) or 'gumbel' (an injected draw's), and given noise
+    has its own (``noise_form``). Each form has its own
+    CapturedStep.
     `lr` is the Adam learning rate, `device` the model's, where the static
     inputs live; `crop` the augment stage of padded batches (None without
     augmentation). On a mesh, `dp` (``parallel.dp.DataParallel``), x and
@@ -434,14 +451,16 @@ class JitStep:
         self.dp = dp
         self.steps: Dict[tuple, CapturedStep] = {}
 
-    def captured(self, x: tuple, y: tuple) -> CapturedStep:
-        """The CapturedStep of one input (shape, dtype) pair (made on
-        first use)."""
-        step = self.steps.get((x, y))
+    def captured(self, x: tuple, y: tuple,
+                 form: Optional[str] = None) -> CapturedStep:
+        """The CapturedStep of one input (shape, dtype) pair and noise
+        form (by default the host's own; made on first use)."""
+        form = form or self.host.form
+        step = self.steps.get((x, y, form))
         if step is None:
             crop = (self.crop if self.crop is not None
                     and self.crop.takes(*x) else None)
-            step = self.steps[(x, y)] = CapturedStep(
+            step = self.steps[(x, y, form)] = CapturedStep(
                 self.device_part, x, y, self.device, self.pool, crop,
                 self.dp)
         return step
@@ -462,7 +481,8 @@ class JitStep:
     def __call__(self, state: TrainState, x, y, gating_temp,
                  noise: Optional[dict] = None):
         step = self.captured((tuple(x.shape), x.dtype),
-                             (tuple(y.shape), y.dtype))
+                             (tuple(y.shape), y.dtype),
+                             None if noise is None else noise_form(noise))
         step.load(x, y)
         return self._run(step, state, gating_temp, noise)
 
@@ -549,8 +569,9 @@ class JitChunk:
     """The chunk of ``make_mixed_scan_train_step(jit=True)`` and the
     resident chunk makers: n steps of the JitSteps `sup` and `unsup` as
     one ``CapturedChunk`` replay, one graph per mask pattern, input shapes
-    and dtypes, and source (shipped, or the resident splits by identity),
-    sharing the steps' graph pool.
+    and dtypes, source (shipped, or the resident splits by identity) and
+    noise form (the steps' ``host.form``), sharing the steps' graph
+    pool.
 
     Its host part does, in step order, what n single steps would: draw
     step j's noise from ``state.next_generator()`` (and its augment
@@ -567,10 +588,10 @@ class JitChunk:
     def captured(self, mask: Tuple[bool, ...], x: tuple, y: tuple,
                  sources=None) -> CapturedChunk:
         """The CapturedChunk of one mask pattern, input (shape, dtype)
-        pair and source (made on first use)."""
+        pair, source and the steps' noise form (made on first use)."""
         src = (None if sources is None else
                tuple((id(a), id(b)) for a, b in sources))
-        key = (mask, x, y, src)
+        key = (mask, x, y, src, self.kinds[True].host.form)
         chunk = self.chunks.get(key)
         if chunk is None:
             crop = (self.crop if self.crop is not None and sources is None
@@ -696,7 +717,9 @@ class JitPass:
 
     `fn` is the device part of one batch, ``(model, x, y, temp, noise) ->
     0-d``; `draw` the host part of one batch, ``(model, b, generator,
-    out) -> noise`` (None for a deterministic pass, which draws nothing).
+    out=None) -> noise`` (None for a deterministic pass, which draws
+    nothing), whose ``form`` picks the pass's graph as ``JitStep``'s host
+    does.
     The host part draws the n batches' noise from the one eval generator,
     batch by batch, straight into the static buffers: the generator ends
     where the eager pass leaves it, and the draws equal its draws. On a
@@ -717,7 +740,7 @@ class JitPass:
                  source=None) -> CapturedPass:
         src = None if source is None else tuple(
             None if t is None else id(t) for t in source)
-        key = (form, n, x, y, src)
+        key = (form, n, x, y, src, self.draw and self.draw.form)
         p = self.passes.get(key)
         if p is None:
             p = self.passes[key] = CapturedPass(

@@ -32,6 +32,17 @@ Captured, each dispatch is one replay:
   eager pass does (``draw_eval_noise``, ``draw_noise``); a resident eval
   epoch is one replay.
 
+A captured dispatch's host part draws only the raw variates, in the eager
+order: z's normals, the two gate uniforms u1, u2, then eps_k or u_y
+(``draw_noise(raw=True)``). Its device part turns the uniforms into the
+gate Gumbels g1, g2 (``gate_gumbels``), as gltvae makes its noise inside
+the jitted step: the ops of the eager draw's ``sample_gumbel`` on the same
+values, so the same bits, with the six launches a gate inside the graph.
+Noise given (``noise=``), or drawn by a function put in the place of
+``draw_noise`` or ``draw_eval_noise`` that takes no ``raw`` (which is then
+called without it), reaches the device part as it comes, Gumbels or
+uniforms; each noise form (``noise_form``) has programs of its own.
+
 ``TrainConfig.remat`` recomputes the loss's forward in the backward pass
 (``torch.utils.checkpoint``): 'none', 'full' (keeps only the loss's
 inputs) or 'dots' (keeps the outputs of ``aten.mm`` and ``aten.addmm``,
@@ -68,6 +79,7 @@ eval's all_gather and the gradient all-reduce run there too.
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
@@ -79,7 +91,7 @@ from gltvae_torch.models.ccvae import CCVAE, Temps
 from gltvae_torch.ops import preprocess
 from gltvae_torch.ops.preprocess import dequant
 from gltvae_torch.ops.resize import resize_bilinear
-from gltvae_torch.ops.sampling import sample_gumbel
+from gltvae_torch.ops.sampling import gumbel_from_uniform, sample_gumbel
 from gltvae_torch.train.graphs import (Crop, JitChunk, JitPass, JitStep,
                                        graph_pool, index_rows)
 from gltvae_torch.train.state import (TrainState, keras_adam_update,
@@ -92,46 +104,127 @@ def _normal(shape, generator, device, out):
     return torch.randn(shape, generator=generator, out=out)
 
 
+def _uniform(shape, generator, device, out):
+    if out is None:
+        return torch.rand(shape, generator=generator, device=device)
+    return torch.rand(shape, generator=generator, out=out)
+
+
+def _gate_draws(model: CCVAE, generator: torch.Generator, out: dict,
+                raw: bool) -> dict:
+    """The two gate draws of μ's shape, in order: the Gumbels g1, g2, or
+    with `raw` their uniforms u1, u2 (the same generator calls)."""
+    mu = model.mu
+    if raw:
+        return {n: _uniform(mu.shape, generator, mu.device, out.get(n))
+                for n in ('u1', 'u2')}
+    return {n: sample_gumbel(mu.shape, generator, device=mu.device,
+                             out=out.get(n))
+            for n in ('g1', 'g2')}
+
+
 def draw_noise(model: CCVAE, batch: int, supervised: bool, k: int,
-               generator: torch.Generator, out: Optional[dict] = None
-               ) -> dict:
+               generator: torch.Generator, out: Optional[dict] = None,
+               raw: bool = False) -> dict:
     """Every draw of one train step, in the order the losses take them
     (also an ELBO batch's: ``supervised`` False, k 0). With `out` (a dict
-    of buffers of the draws' shapes) they are drawn into it."""
+    of buffers of the draws' shapes) they are drawn into it. With `raw` the
+    gates' draws are their uniforms u1, u2, which ``gate_gumbels`` turns
+    into the Gumbels on the device; the generator ends where it would."""
     c = model.cfg
     dev = model.mu.device
     o = out or {}
-    gumbel = lambda name: sample_gumbel(model.mu.shape, generator,
-                                        device=dev, out=o.get(name))
     noise = {'eps_z': _normal((batch, c.z_dim), generator, dev,
-                              o.get('eps_z')),
-             'g1': gumbel('g1'), 'g2': gumbel('g2')}
+                              o.get('eps_z'))}
+    noise.update(_gate_draws(model, generator, o, raw))
     if supervised:
         noise['eps_k'] = _normal((k, batch, c.z_dim), generator, dev,
                                  o.get('eps_k'))
-    elif 'u_y' in o:
-        noise['u_y'] = torch.rand((batch, c.y_dim), generator=generator,
-                                  out=o['u_y'])
     else:
-        noise['u_y'] = torch.rand((batch, c.y_dim), generator=generator,
-                                  device=dev)
+        noise['u_y'] = _uniform((batch, c.y_dim), generator, dev,
+                                o.get('u_y'))
     return noise
 
 
 def draw_eval_noise(model: CCVAE, batch: int, generator: torch.Generator,
-                    out: Optional[dict] = None) -> dict:
+                    out: Optional[dict] = None, raw: bool = False) -> dict:
     """One stochastic eval batch's draws, in the order ``predict_probs``
     takes them from a generator: z's normals, then the two gate Gumbels
-    (on a mesh, the global batch's, of which each rank reads its rows). With
-    `out` they are drawn into it."""
-    dev = model.mu.device
+    (with `raw` their uniforms; on a mesh, the global batch's, of which
+    each rank reads its rows). With `out` they are drawn into it."""
     o = out or {}
-    return {'eps_z': _normal((batch, model.cfg.z_dim), generator, dev,
-                             o.get('eps_z')),
-            'g1': sample_gumbel(model.mu.shape, generator, device=dev,
-                                out=o.get('g1')),
-            'g2': sample_gumbel(model.mu.shape, generator, device=dev,
-                                out=o.get('g2'))}
+    noise = {'eps_z': _normal((batch, model.cfg.z_dim), generator,
+                              model.mu.device, o.get('eps_z'))}
+    noise.update(_gate_draws(model, generator, o, raw))
+    return noise
+
+
+def draw_form(draw: Callable) -> str:
+    """The form of what a host part draws through `draw`: 'uniform' where
+    it takes ``raw`` (this module's draws, asked with ``raw=True``),
+    'gumbel' where it does not (a draw put in their place, called without
+    it)."""
+    return ('uniform' if 'raw' in inspect.signature(draw).parameters
+            else 'gumbel')
+
+
+def gate_gumbels(noise: Optional[dict]) -> Optional[dict]:
+    """`noise` with its gate uniforms u1, u2 turned into the Gumbels g1, g2
+    (``gumbel_from_uniform``, out of place, so that a replay reads its
+    static uniforms unchanged); noise of Gumbels, or None, as it is. The
+    device parts run it first: the same ops on the same uniforms as
+    ``sample_gumbel``, so the same bits as the eager draws."""
+    if noise is None or 'u1' not in noise:
+        return noise
+    out = {k: v for k, v in noise.items() if k not in ('u1', 'u2')}
+    out['g1'] = gumbel_from_uniform(noise['u1'])
+    out['g2'] = gumbel_from_uniform(noise['u2'])
+    return out
+
+
+class StepDraws:
+    """The host part's draws of one train step kind, ``(state, b, noise,
+    out=None) -> noise``: `noise` when given, else drawn from the state's
+    per-step generator through the module's ``draw_noise``, looked up at
+    each call so that a draw put in its place is reached (into `out` when
+    given; on a mesh the global batch's for b rows a rank,
+    ``DataParallel.draws``). ``form``, fixed when it is made
+    (``draw_form``), is what its draws are; ``kw`` asks for them."""
+
+    def __init__(self, supervised: bool, k: int, dp=None):
+        self.supervised, self.k, self.dp = supervised, k, dp
+        self.form = draw_form(draw_noise)
+        self.kw = {'raw': True} if self.form == 'uniform' else {}
+
+    def __call__(self, state: TrainState, b: int, noise: Optional[dict],
+                 out: Optional[dict] = None) -> dict:
+        if self.dp is not None:
+            return self.dp.draws(state, b, self.supervised, self.k, noise,
+                                 out, **self.kw)
+        if noise is None:
+            noise = draw_noise(state.model, b, self.supervised, self.k,
+                               state.next_generator(), out=out, **self.kw)
+        return noise
+
+
+class PassDraws:
+    """The host part of one batch of a stochastic eval pass (``draw_eval_
+    noise``) or, with `elbo`, of an ELBO pass (``draw_noise``,
+    unsupervised, k 0): ``(model, b, generator, out=None) -> noise``
+    through the module's function, looked up at each call; ``form`` and
+    ``kw`` as ``StepDraws``'."""
+
+    def __init__(self, elbo: bool = False):
+        self.elbo = elbo
+        self.form = draw_form(draw_noise if elbo else draw_eval_noise)
+        self.kw = {'raw': True} if self.form == 'uniform' else {}
+
+    def __call__(self, model: CCVAE, b: int, generator: torch.Generator,
+                 out: Optional[dict] = None) -> dict:
+        if self.elbo:
+            return draw_noise(model, b, False, 0, generator, out=out,
+                              **self.kw)
+        return draw_eval_noise(model, b, generator, out=out, **self.kw)
 
 
 def _metrics(loss, aux):
@@ -184,11 +277,12 @@ def resolve_jit(jit: Optional[bool], dp) -> bool:
     captured by default (on the CPU, the static-buffer path run eagerly);
     on a gloo mesh over CUDA tensors eager by default, and ``jit=True``
     raises. On an NCCL mesh of more than one rank the dispatches are eager
-    by default and captured with ``jit=True``: across cards only the
-    captured train steps and eval passes have been held to eager on the
-    card (``chip_smoke.py`` phase 37); the chunks, resident exchanges,
-    shardmap steps and inference have been, so far, on one rank only
-    (phase 42 at D = 1)."""
+    by default and captured with ``jit=True``: on four cards every
+    captured maker, shardmap step and inference pass is bit-equal to
+    eager at 2 and 4 ranks (``chip_smoke.py`` phases 37 and 42), but the
+    data-parallel CLI captured at 2 ranks did not finish (phase 39; fault
+    F4 in ROADMAP, its cause not yet known), so the default there stays
+    eager and a Trainer given ``jit=True`` there warns."""
     mesh = None if dp is None else getattr(dp, 'mesh', dp)
     if mesh is not None and mesh.device.type == 'cuda':
         if not mesh.capturable:
@@ -267,6 +361,7 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
         """(state, x, y, gating_temp, alpha, noise) -> metrics: everything
         of a step that runs on the device, reading nothing back."""
         def part(state: TrainState, x, y, gating_temp, alpha, noise):
+            noise = gate_gumbels(noise)
             if dp is not None:
                 noise = dp.rows_of(noise)
             x = _prep_image(x, size)
@@ -287,22 +382,8 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
             return metrics
         return part
 
-    def host_noise(supervised: bool) -> Callable:
-        """(state, b, noise, out=None) -> the step's draws: `noise` when
-        given, else drawn from the state's per-step generator (into `out`
-        when given; on a mesh, the global batch's for b rows a rank,
-        ``DataParallel.draws``)."""
-        def draws(state: TrainState, b: int, noise, out=None):
-            if dp is not None:
-                return dp.draws(state, b, supervised, k, noise, out)
-            if noise is None:
-                noise = draw_noise(state.model, b, supervised, k,
-                                   state.next_generator(), out=out)
-            return noise
-        return draws
-
     def eager(supervised: bool) -> Callable:
-        part, draws = device_part(supervised), host_noise(supervised)
+        part, draws = device_part(supervised), StepDraws(supervised, k, dp)
 
         def step(state: TrainState, x, y, gating_temp,
                  noise: Optional[dict] = None):
@@ -321,8 +402,8 @@ def make_train_steps(model: CCVAE, train_cfg: TrainConfig, dp=None,
         return eager(True), eager(False)
     dev = model.mu.device
     pool = graph_pool(dev)
-    return tuple(JitStep(device_part(s), host_noise(s), train_cfg.lr, dev,
-                         pool, crop, dp)
+    return tuple(JitStep(device_part(s), StepDraws(s, k, dp), train_cfg.lr,
+                         dev, pool, crop, dp)
                  for s in (True, False))
 
 
@@ -441,8 +522,10 @@ def make_resident_mixed_scan_train_step(model: CCVAE, train_cfg: TrainConfig,
 
 def _accuracy(model: CCVAE, x, y, temps: Temps, det: bool, noise, dp):
     """One eval batch's accuracy from its draws `noise` (None when
-    deterministic): with `dp`, x and y are this rank's rows, `noise` the
-    global batch's draws, and the matches are gathered over the ranks."""
+    deterministic; its gate uniforms become Gumbels here): with `dp`, x
+    and y are this rank's rows, `noise` the global batch's draws, and the
+    matches are gathered over the ranks."""
+    noise = gate_gumbels(noise)
     if dp is None:
         return model.classifier_accuracy(x, y.to(torch.float32), temps,
                                          deterministic=det, noise=noise)
@@ -454,6 +537,7 @@ def _accuracy(model: CCVAE, x, y, temps: Temps, det: bool, noise, dp):
 def _elbo(model: CCVAE, x, temps: Temps, noise, dp):
     """One ELBO batch's mean ELBO from its draws; with `dp`, this rank's
     rows of the global batch's, averaged over the ranks."""
+    noise = gate_gumbels(noise)
     if dp is None:
         return model.unsup_loss(x, temps, noise=noise)[1].elbo
     return dp.mean(model.unsup_loss(x, temps,
@@ -469,7 +553,7 @@ def _eval_pass(model: CCVAE, train_cfg: TrainConfig, dp=None) -> JitPass:
     def fn(model: CCVAE, x, y, temp, noise):
         return _accuracy(model, _prep_image(x, size), y, Temps(gating=temp),
                          det, noise, dp)
-    return JitPass(model, fn, None if det else draw_eval_noise, dp)
+    return JitPass(model, fn, None if det else PassDraws(), dp)
 
 
 def _elbo_pass(model: CCVAE, dp=None) -> JitPass:
@@ -480,10 +564,7 @@ def _elbo_pass(model: CCVAE, dp=None) -> JitPass:
     def fn(model: CCVAE, x, y, temp, noise):
         return _elbo(model, _prep_image(x, size), Temps(gating=temp), noise,
                      dp)
-
-    def draw(model, b, generator, out=None):
-        return draw_noise(model, b, False, 0, generator, out=out)
-    return JitPass(model, fn, draw, dp)
+    return JitPass(model, fn, PassDraws(elbo=True), dp)
 
 
 def make_eval_step(model: CCVAE, train_cfg: TrainConfig, dp=None,

@@ -17,6 +17,7 @@ tests/test_torch_steps.py's: metrics rtol 1e-5 atol 1e-5, params atol
 import csv
 import dataclasses
 import json
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -505,6 +506,27 @@ def test_trainer_jit_on_a_mesh_raises(name):
     tr = Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
                  mesh=_mesh(name, world=1))
     assert isinstance(tr._sup_step, JitStep)
+
+
+def test_a_captured_trainer_past_one_nccl_rank_warns():
+    """jit=True for a Trainer on an NCCL mesh of two ranks warns of fault
+    F4 (the captured CLI there did not finish) before anything touches a
+    card; the step makers, which passed there, do not warn, nor does the
+    Trainer's eager default."""
+    from gltvae_torch.parallel.dp import DataParallel
+    model_cfg, train_cfg = configs()
+    mesh = _mesh('nccl-cuda', world=2)
+    with pytest.warns(RuntimeWarning, match='fault F4'), \
+            pytest.raises(AssertionError, match='not compiled with CUDA'):
+        Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
+                mesh=mesh)
+    model = init_model(model_cfg, train_cfg, mu_init(), CPU)
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        assert all(isinstance(s, JitStep) for s in make_train_steps(
+            model, train_cfg, dp=DataParallel(mesh), jit=True))
+        with pytest.raises(AssertionError, match='not compiled with CUDA'):
+            Trainer(model_cfg, train_cfg, mu_init=mu_init(), mesh=mesh)
 
 
 # ------------------------------------------------------------------ (8)
