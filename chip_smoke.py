@@ -188,12 +188,15 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     to first step, and the device ms a step on the slowest card (NCCL's
     kernels apart) from a separate one-epoch run of the same command whose
     dispatches 4-11 are profiled; dequant timed at (1024, 64, 64, 3) and
-    (2048, 64, 64, 3). The mesh of one runs captured (the default over
-    NCCL on one rank; past one rank the default is eager: fault F4), and
-    the step wall is printed beside the eager one recorded on four cards,
-    the profiled figure beside its own window's wall; each launch prints
-    a timestamped line as it starts. Each process that fails or outlives 600 s fails the
-    phase (its session killed);
+    (2048, 64, 64, 3). Every D runs captured (the default over NCCL at
+    every size), its Trainers held past ``cli.main`` (whose leaving the
+    group releases their graphs), and the step wall is printed beside the
+    eager one recorded on four cards, the profiled figure beside its own
+    window's wall; each launch prints a timestamped line as it starts,
+    each rank one before and after it leaves its group, and a rank still
+    running 60 s before its kill dumps its Python stack into the kept
+    log. Each process that fails or outlives 600 s fails the phase (its
+    session killed);
 40. the captured train step (``train/graphs.py``, gltvae's jitted step):
     (a) phase 5's model, 16 steps of the sup 0.5 interleave from one
     state, the temperature decayed halfway, eagerly (``jit=False``) and
@@ -262,13 +265,23 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
     4096/D rows a rank) and a chunk of 4, eager and captured: first call,
     waited and back-to-back walls, img/s, device ms and NCCL ms on the
     slowest rank, busy share, host launches, peak memory, the card; and
-    the phase's wall.
+    the phase's wall. A rank still running 30 s before its kill dumps its
+    Python stack;
+43. leaving a group with a captured program alive: ``torchrun`` of D
+    NCCL ranks (each of ``--worlds`` past one; D = 1 where there is no
+    such world, as on one card), each capturing ``config.dp_sweep()[0]``'s
+    data-parallel sup step (bf16, global batch 4096) by default, running
+    it twice, keeping it, and calling ``parallel.mesh.shutdown`` under a
+    60 s bound (a rank still inside dumps its stack and exits 1): every
+    rank must print that it left its group, its step registered with the
+    mesh, holding its collectives, and released, and the held step run
+    again must raise, naming the group it left.
 
 Phases 5, 9, 11, 13, 18-22, 27-29 and 33-38 train and evaluate through
 captured programs (the Trainer's default on one device and on an NCCL
 mesh of one); phase 30 runs both ways, with and without the mesh of one;
-phases 31 and 39 run on meshes (31 over gloo on one card, eager; 39 over
-NCCL, captured on one rank, eager past one). The dequant and
+phases 31, 39 and 43 run on meshes (31 over gloo on one card, eager; 39
+and 43 over NCCL, captured). The dequant and
 augment launches of captured programs are counted at their replays
 (``train/graphs.py``), and every program captured in this process is
 audited at its capture (``audit_graphs``, after phase 2): its graph must
@@ -277,10 +290,11 @@ Phase 41 (f) prints the audit's tally; phases 37 and 40 (d) also print
 how many dequant kernels torch.profiler saw run.
 
 The second-to-last line is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37, 42
-and 39 alone (the check to run on four cards: phases 42 and 39 then also
-at D = 2 and min(cards, 4), one rank a card; ``--worlds 2,4`` picks
-their rank counts, to leave out D = 1, which every whole run covers);
+{"ok": true, "device": {...}}. ``--sweep-only`` runs phases 1-2, 37, 42,
+43 and 39 alone (the check to run on four cards: phases 42, 43 and 39
+then also at D = 2 and min(cards, 4), one rank a card; ``--worlds 2,4``
+picks their rank counts, to leave out D = 1, which every whole run
+covers); ``--teardown-only`` runs phases 1-2 and 43 (at ``--worlds``);
 ``--graphs-only`` runs
 phases 1-2 and 40-42. ``--h2h-only`` runs phases 1-2,
 then the recorded head-to-head matrix through the harness in one workdir
@@ -2966,7 +2980,8 @@ EAGER_DP_CLI_STEP_MS = {1: 19.667, 2: 18.386, 4: 19.174}
 
 
 def dp_cli_worlds(cards, sweep, given=None):
-    """Phase 39's and 42's rank counts: a mesh of one (one rank over NCCL)
+    """Phase 39's, 42's and 43's rank counts: a mesh of one (one rank over
+    NCCL)
     on a run of the whole script; with ``--sweep-only`` and 2 or more cards
     also 2 and min(cards, 4) ranks, one a card (NCCL refuses two ranks on
     one card, so never more ranks than cards), or the counts `given`
@@ -3078,12 +3093,19 @@ def dp_cli_rank(report_dir, argv, profiled=False):
     `profiled` on a card, DP_CLI_PROFILE's dispatches under the profiler.
     Writes ``<report_dir>/rank<r>.json``."""
     sys.path.insert(0, os.path.dirname(SCRIPT))
+    import faulthandler
+
     import torch
+    import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile, schedule
     from gltvae_torch import cli
     from gltvae_torch.ops import preprocess
+    from gltvae_torch.parallel import mesh as pmesh
     from gltvae_torch.profile_step import kernel_table
     from gltvae_torch.train import loop, metrics
+    # a rank that hangs shows its Python stack in the kept log before its
+    # kill (the process started a few seconds after the kill's clock)
+    faulthandler.dump_traceback_later(DP_CLI_TIMEOUT - 60)
     rank = int(os.environ.get('RANK', '0'))
     world = int(os.environ.get('WORLD_SIZE', '1'))
     args = cli.parse_args(argv)
@@ -3131,6 +3153,16 @@ def dp_cli_rank(report_dir, argv, profiled=False):
             return out
         return run
 
+    def leaving(fn):
+        def run():
+            grouped = dist.is_initialized()
+            if grouped:
+                rank_line(39, rank, world, 'leaving the group')
+            fn()
+            if grouped:
+                rank_line(39, rank, world, 'left the group')
+        return run
+
     def on_trace(p):
         events = [e for e in p.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3139,7 +3171,8 @@ def dp_cli_rank(report_dir, argv, profiled=False):
             all=kernel_table(events, n_prof, 5),
             nccl=kernel_table(nccl, n_prof, 2) if nccl else None))
     undo = [patched(metrics.Throughput, 'step', on_step),
-            patched(loop.Trainer, 'train', on_train)]
+            patched(loop.Trainer, 'train', on_train),
+            patched(pmesh, 'shutdown', leaving)]
     out_dir = os.path.abspath(args.output_dir)
     try:
         if cuda and profiled:
@@ -3158,6 +3191,7 @@ def dp_cli_rank(report_dir, argv, profiled=False):
     finally:
         for u in reversed(undo):
             u()
+        faulthandler.cancel_dump_traceback_later()
     own = sorted({os.path.relpath(p, out_dir) for p in written
                   if p.startswith(out_dir + os.sep)})
     mesh = trainers[-1].mesh
@@ -3263,7 +3297,8 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
     dequant bit-equal to plain at each rank's rows and its launch count,
     the files (rank 0 alone writes result.json, the checkpoints and the μ
     files), the final state within ``dp_cli_bounds`` of the one process's
-    and test accuracy within DP_CLI_ACC_TOL, the CSVs equal row for row.
+    and test accuracy within DP_CLI_ACC_TOL, the CSVs equal row for row,
+    and every rank's line that it left its group.
     Printed: the trainer meter's img/s, the step wall of the last epoch,
     spawn to first step, and the device ms a step (NCCL's share apart) of
     a one-epoch run profiled on each card. Returns what it measured a
@@ -3295,10 +3330,16 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
         cmd = [SCRIPT, '--dp-cli-rank', rep,
                *(['--profiled'] if profiled else []), *argv]
         t0 = time.time()
+        log = kept_log(os.path.basename(rep) + '.log')
         s = run_bounded(torchrun(world, *cmd) if world else
-                        [sys.executable, *cmd],
-                        kept_log(os.path.basename(rep) + '.log'),
-                        DP_CLI_TIMEOUT)
+                        [sys.executable, *cmd], log, DP_CLI_TIMEOUT)
+        if world:
+            with open(log) as f:
+                text = f.read()
+            check(all(f'rank {r} of {world}: left the group' in text
+                      for r in range(world)),
+                  f'{world} ranks: not every rank printed that it left '
+                  f'its group ({log})')
         reports = []
         for r in range(world or 1):
             with open(os.path.join(rep, f'rank{r}.json')) as f:
@@ -3411,12 +3452,10 @@ def dp_cli_phase(dev, smi, worlds, **argv_kw):
                   f'{ref_result["test_accuracy"]:.4f} (tol '
                   f'{DP_CLI_ACC_TOL})')
         print(dp_cli_line(f'{world} rank(s)', speed, smi), flush=True)
-        mode = 'captured' if world == 1 else 'eager (the CLI\'s default ' \
-            'past one rank)'
-        print(f'  the step wall {mode} {speed["step_wall_ms"]:.3f} ms; '
-              f'eager (recorded, four cards) '
-              f'{EAGER_DP_CLI_STEP_MS.get(world, float("nan")):.3f} ms',
-              flush=True)
+        print(f'  the step wall captured (the CLI\'s default) '
+              f'{speed["step_wall_ms"]:.3f} ms; eager (recorded, four '
+              f'cards) {EAGER_DP_CLI_STEP_MS.get(world, float("nan")):.3f} '
+              f'ms', flush=True)
 
         # infer --mesh on this run's checkpoint, held row for row to one
         # process labelling as many rows a call as each card does (the same
@@ -4669,11 +4708,17 @@ def dp_graphs_speed_record(world, label, mode, batch, dtype, per_rank, smi):
                 units=r0['units'], profiled_units=r0['profiled'], card=smi)
 
 
+def rank_line(n, rank, world, text):
+    """Rank `rank` of `world` in phase `n` prints `text`, flushed and
+    timestamped, so that a run cut at its limit shows where each rank
+    stood."""
+    print(f'[phase {n}] {time.strftime("%H:%M:%S")} rank {rank} of '
+          f'{world}: {text}', flush=True)
+
+
 def rank_mark(n, mesh, text):
-    """A rank of phase `n` says, flushed and timestamped, that it starts
-    `text`, so that a run cut at its limit shows where each rank stood."""
-    print(f'[phase {n}] {time.strftime("%H:%M:%S")} rank {mesh.rank} of '
-          f'{mesh.world}: starting {text}', flush=True)
+    """A rank of phase `n` says that it starts `text` (``rank_line``)."""
+    rank_line(n, mesh.rank, mesh.world, f'starting {text}')
 
 
 def mesh_graphs_work(mesh, dev, cfgs, photos):
@@ -4774,10 +4819,13 @@ def mesh_graphs_rank(rank, world, url, devices, cfgs, photos, out_dir, root,
     global ROOT, BATCH
     ROOT, BATCH = root, batch
     sys.path.insert(0, ROOT)
+    import faulthandler
     import torch
     from gltvae_torch.config import apply_precision
     from gltvae_torch.ops import preprocess
     from gltvae_torch.parallel import mesh as pmesh
+    # a rank that hangs shows its Python stack before the parent kills it
+    faulthandler.dump_traceback_later(MESH_GRAPHS_TIMEOUT - 30)
     dev = torch.device(devices[rank])
     cuda = dev.type == 'cuda'
     apply_precision(cfgs['plain'][0])       # TF32 off, as in training
@@ -4808,22 +4856,20 @@ def mesh_graphs_rank(rank, world, url, devices, cfgs, photos, out_dir, root,
         out['backend'] = mesh.backend
         torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
         if world > 1:       # a rank that hangs leaving its group shows
-            print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
-                  f'{world}: saved, leaving the group', flush=True)
+            rank_line(42, rank, world, 'saved, leaving the group')
     except BaseException:
         # shown now: a rank that fails while its peers wait in a collective
         # can block in leaving the group, and its error would show only
         # at its exit
-        print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
-              f'{world} failed:', flush=True)
+        rank_line(42, rank, world, 'failed:')
         traceback.print_exc()
         sys.stderr.flush()
         raise
     finally:
         pmesh.shutdown()
+    faulthandler.cancel_dump_traceback_later()
     if world > 1:
-        print(f'[phase 42] {time.strftime("%H:%M:%S")} rank {rank} of '
-              f'{world}: left the group', flush=True)
+        rank_line(42, rank, world, 'left the group')
 
 
 def mesh_graphs_report(world, ranks, smi, cfgs, spawn_s):
@@ -5008,6 +5054,167 @@ def mesh_graphs_phase(dev, smi, worlds, cfgs=None,
     return out
 
 
+#: Phase 43: a rank's bound on leaving its group with a captured program
+#: alive (armed as a faulthandler dump and exit), and the kill of the
+#: whole torchrun session.
+TEARDOWN_BOUND = 60.0
+TEARDOWN_TIMEOUT = 300.0
+
+
+def teardown_worlds(worlds):
+    """Phase 43's rank counts: those of `worlds` past one, or one where
+    there is none (a card's NCCL group of one)."""
+    return [w for w in worlds if w > 1] or [1]
+
+
+def teardown_rank(report_dir, batch, device):
+    """One rank of phase 43 under torchrun: ``config.dp_sweep()[0]``'s
+    data-parallel sup step at global `batch` on this rank's rows of a
+    seeded batch, made by default (captured over NCCL; on the CPU, over
+    gloo, the static-buffer path, with nothing to capture) and run twice;
+    then, with the step still held, ``parallel.mesh.shutdown`` under a
+    TEARDOWN_BOUND-second faulthandler bound (a rank still inside dumps
+    every thread's stack and exits 1), a timestamped line before and
+    after; then the held step run once more, which must raise where it
+    was captured. Writes ``<report_dir>/rank<r>.json``."""
+    sys.path.insert(0, os.path.dirname(SCRIPT))
+    import dataclasses
+    import faulthandler
+
+    import numpy as np
+    import torch
+    from gltvae_torch.config import apply_precision, dp_sweep
+    from gltvae_torch.ops.gating import cooccurrence_gating_matrix
+    from gltvae_torch.parallel import mesh as pmesh
+    from gltvae_torch.parallel.dp import DataParallel, shard_state
+    from gltvae_torch.train.graphs import JitStep
+    from gltvae_torch.train.state import create_train_state, init_model
+    from gltvae_torch.train.steps import make_train_steps
+    mesh = pmesh.create_mesh(device)
+    rank, world = mesh.rank, mesh.world
+    _, model_cfg, train_cfg = dp_sweep()[0]
+    train_cfg = dataclasses.replace(train_cfg, batch_size=batch)
+    apply_precision(model_cfg)
+    r = np.random.RandomState(43)
+    size = model_cfg.image_size
+    x = r.randint(0, 256, (batch, size, size, 3)).astype(np.uint8)
+    y = (r.rand(batch, model_cfg.y_dim) > 0.5).astype(np.float32)
+    model = init_model(model_cfg, train_cfg, cooccurrence_gating_matrix(y),
+                       mesh.device)
+    state = shard_state(create_train_state(model, train_cfg), mesh)
+    sup, _ = make_train_steps(model, train_cfg, DataParallel(mesh))
+    rows = mesh.rows(batch)
+    xr = torch.from_numpy(x[rows]).to(mesh.device)
+    yr = torch.from_numpy(y[rows]).to(mesh.device)
+    losses = []
+    for _ in range(2):
+        state, m = sup(state, xr, yr, 1.0)
+        losses.append(float(m['loss']))
+    program = (next(iter(sup.steps.values()))
+               if isinstance(sup, JitStep) else None)
+    captured = program is not None and program.graph is not None
+    held = len(pmesh.registered())
+    rank_line(43, rank, world, f'leaving the group with {held} registered '
+                               f'program(s) alive, captured {captured}')
+    faulthandler.dump_traceback_later(TEARDOWN_BOUND, exit=True)
+    t0 = time.perf_counter()
+    pmesh.shutdown()
+    left_s = time.perf_counter() - t0
+    faulthandler.cancel_dump_traceback_later()
+    rank_line(43, rank, world, f'left the group in {left_s:.3f} s')
+    raised = None
+    if captured:
+        try:
+            sup(state, xr, yr, 1.0)
+        except RuntimeError as e:
+            raised = str(e)
+    report = dict(rank=rank, world=world, backend=mesh.backend,
+                  jit=program is not None, captured=captured,
+                  registered=held,
+                  collectives=program.collectives if program else 0,
+                  released=bool(program and program.released),
+                  left_s=left_s, raised=raised, losses=losses)
+    with open(os.path.join(report_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def teardown_phase(dev, smi, worlds, batch=None):
+    """Phase 43: ``teardown_rank`` through torchrun at each of `worlds`
+    ranks (``teardown_worlds``), one a card over NCCL (gloo on the CPU),
+    the session killed after TEARDOWN_TIMEOUT seconds. Held: every rank
+    printed that it left its group within TEARDOWN_BOUND seconds, its
+    losses finite and equal to rank 0's; on a card, its step captured by
+    default, registered with the mesh, holding at least one collective,
+    released at ``shutdown`` and raising when run again, naming the group
+    it left. `batch` defaults to ``config.dp_sweep()[0]``'s global batch.
+    Returns what each world measured."""
+    from gltvae_torch.config import dp_sweep
+    cuda = dev.type == 'cuda'
+    batch = batch or dp_sweep()[0][2].batch_size
+    root = os.path.join(ROOT, 'build', 'chip_smoke_teardown')
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for world in teardown_worlds(worlds):
+        rep = os.path.join(root, f'd{world}')
+        os.makedirs(rep)
+        log = kept_log(f'teardown_d{world}.log')
+        print(f'  phase 43 launch, {time.strftime("%H:%M:%S")}: {world} '
+              f'rank(s)', flush=True)
+        s = run_bounded(torchrun(world, SCRIPT, '--teardown-rank', rep,
+                                 str(batch), 'cuda' if cuda else 'cpu'),
+                        log, TEARDOWN_TIMEOUT)
+        with open(log) as f:
+            lines = [ln.rstrip() for ln in f if '[phase 43]' in ln]
+        for ln in lines:
+            print('  ' + ln[ln.index('[phase 43]'):], flush=True)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(rep, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        for r, got in enumerate(ranks):
+            tag = f'D = {world} rank {r}'
+            check(any(f'rank {r} of {world}: left the group' in ln
+                      for ln in lines), f'{tag}: no line says it left')
+            check(got['left_s'] < TEARDOWN_BOUND,
+                  f'{tag}: left its group in {got["left_s"]:.1f} s')
+            check(got['losses'] == r0['losses'] and all(
+                math.isfinite(v) for v in got['losses']),
+                f'{tag}: losses {got["losses"]}, rank 0 {r0["losses"]}')
+            check(got['jit'] and got['backend'] == ('nccl' if cuda
+                                                    else 'gloo'),
+                  f'{tag}: step made with jit {got["jit"]} over '
+                  f'{got["backend"]}')
+            if cuda:
+                check(got['captured'] and got['registered'] >= 1
+                      and got['collectives'] >= 1 and got['released']
+                      and 'left its process group' in (got['raised'] or ''),
+                      f'{tag}: captured {got["captured"]}, registered '
+                      f'{got["registered"]}, collectives '
+                      f'{got["collectives"]}, released {got["released"]}, '
+                      f'run after leaving: {got["raised"]}')
+            else:       # the static-buffer path: nothing captured
+                check(not got['captured'] and got['registered'] == 0,
+                      f'{tag}: captured or registered on the CPU')
+        out[world] = dict(seconds=s, left_s=[g['left_s'] for g in ranks],
+                          registered=r0['registered'],
+                          collectives=r0['collectives'],
+                          captured=r0['captured'])
+        made = (f'captured the sweep sup step at global batch {batch} '
+                f'({r0["collectives"]} collective(s) in its graph)'
+                if cuda else f'ran the sweep sup step at global batch '
+                f'{batch} on the static-buffer path (nothing captured)')
+        phase(43, f'D = {world}: {world} rank(s) over {r0["backend"]}, '
+                  f'{s:.1f} s with their start: each {made}, kept it and '
+                  f'left the group in '
+                  + ', '.join(f'{v:.3f}' for v in out[world]['left_s'])
+                  + f' s (bound {TEARDOWN_BOUND:.0f} s), releasing '
+                  f'{r0["registered"]} registered program(s)'
+                  + ('; the held step raised when run again' if cuda
+                     else '') + f'; card {smi}')
+    return out
+
+
 def main(argv=None):
     import argparse
     argv = sys.argv[1:] if argv is None else argv
@@ -5015,19 +5222,28 @@ def main(argv=None):
         profiled = argv[2:3] == ['--profiled']
         dp_cli_rank(argv[1], argv[2 + profiled:], profiled)
         return 0
+    if argv[:1] == ['--teardown-rank']:     # one rank of phase 43
+        teardown_rank(argv[1], int(argv[2]), argv[3])
+        return 0
     p = argparse.ArgumentParser(description='Smoke run of the port on the '
-                                'GPU (phases 1-42; see the module text).')
+                                'GPU (phases 1-43; see the module text).')
     p.add_argument('--sweep-only', action='store_true',
-                   help='phases 1-2, 37, 39 and 42 only: the sweep in one '
-                        'process and, with 2 or more cards, on min(cards, '
-                        '4) NCCL ranks; the data-parallel CLI and the '
-                        'captured mesh dispatches on 1 rank and, with 2 or '
-                        'more cards, on 2 and min(cards, 4) (the four-card '
-                        'check)')
+                   help='phases 1-2, 37, 42, 43 and 39 only: the sweep in '
+                        'one process and, with 2 or more cards, on '
+                        'min(cards, 4) NCCL ranks; the captured mesh '
+                        'dispatches and the data-parallel CLI on 1 rank '
+                        'and, with 2 or more cards, on 2 and min(cards, 4), '
+                        'and leaving a group with a captured step alive '
+                        'past one rank (the four-card check)')
+    p.add_argument('--teardown-only', action='store_true',
+                   help='phases 1-2 and 43 only: leaving a group with a '
+                        'captured step alive, on 2 and min(cards, 4) NCCL '
+                        'ranks (or --worlds)')
     p.add_argument('--worlds', default=None,
-                   help='with --sweep-only: the rank counts of phases 42 '
-                        'and 39, comma-separated (default 1, 2 and '
-                        'min(cards, 4); never more than the cards)')
+                   help='with --sweep-only or --teardown-only: the rank '
+                        'counts of phases 42, 43 and 39, comma-separated '
+                        '(default 1, 2 and min(cards, 4); never more than '
+                        'the cards)')
     p.add_argument('--h2h-only', action='store_true',
                    help='phases 1-2, then the recorded head-to-head matrix '
                         'through the harness\'s port leg (13 runs of 12 '
@@ -5090,7 +5306,8 @@ def main(argv=None):
 
     audited = audit_graphs()
 
-    if args.sweep_only or args.h2h_only or args.graphs_only:
+    if args.sweep_only or args.h2h_only or args.graphs_only \
+            or args.teardown_only:
         if args.graphs_only:
             graphs = graphs_phase(dev, smi)
             dispatch = dispatch_phase(dev, smi, audited)
@@ -5104,9 +5321,15 @@ def main(argv=None):
             worlds = dp_cli_worlds(count, True, args.worlds)
             sweep = sweep_phase(dev, smi)
             mesh_graphs = mesh_graphs_phase(dev, smi, worlds)
+            teardown = teardown_phase(dev, smi, worlds)
             dp_cli = dp_cli_phase(dev, smi, worlds)
             print(json.dumps({'sweep': sweep, 'dp_cli': dp_cli,
-                              'mesh_graphs': mesh_graphs}), flush=True)
+                              'mesh_graphs': mesh_graphs,
+                              'teardown': teardown}), flush=True)
+        if args.teardown_only:
+            teardown = teardown_phase(
+                dev, smi, dp_cli_worlds(count, True, args.worlds))
+            print(json.dumps({'teardown': teardown}), flush=True)
         if args.h2h_only:
             h2h_matrix(dev, smi, args.h2h_out)
         print(json.dumps({'ok': True, 'device': {'platform': 'gpu',
@@ -5614,6 +5837,9 @@ def main(argv=None):
     # ------------------------------------------------------------- 42
     mesh_graphs = mesh_graphs_phase(dev, smi, [1])
     mesh1 = mesh_graphs[1]['launches']
+
+    # ------------------------------------------------------------- 43
+    teardown_phase(dev, smi, dp_cli_worlds(count, False))
 
     # ------------------------------------------------------------- out
     record = {'kernels': [{

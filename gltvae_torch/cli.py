@@ -31,11 +31,10 @@ cpu``): started by ``torchrun``, or once per rank with the three
 ``--dist-*`` flags (all or none); either makes a run with more than one
 process a mesh run. The global batch is ``-bs``; each rank's loaders are
 host-sharded and decode only its rows; rank 0 writes the run's files.
-On an NCCL mesh of one rank every dispatch is a CUDA graph with its
-collectives inside, as on one device (``train/graphs.py``); on more
-ranks the dispatches are eager (``train/steps.py::resolve_jit``: the
-captured CLI at two ranks did not finish on four cards, fault F4, its
-cause not yet known).
+On an NCCL mesh of any size every dispatch is a CUDA graph with its
+collectives inside, as on one device (``train/graphs.py``,
+``train/steps.py::resolve_jit``); the run leaves its group through
+``parallel.mesh.shutdown``, which releases those graphs first.
 
 It takes train.py's flags but ``--prng`` and the compilation-cache flags;
 ``--device`` stands for ``--platform``.

@@ -21,8 +21,7 @@ mean and expected gates by default, sampled z and gates at ``--temp`` with
 ``--stochastic``. The CSV has ``image_id``, one 0/1 column per attribute
 (1 iff p > 0.5) and one ``p_<attribute>`` column (``%.4f``). On a CUDA
 device the forward is one CUDA graph a batch (``make_predict``), on an
-NCCL mesh of one rank with its gather inside (of more ranks, eager:
-``steps.resolve_jit``).
+NCCL mesh of any size with its gather inside (``steps.resolve_jit``).
 
 ``--mesh`` labels data-parallel over the ranks of a process group (run
 under ``torchrun --nproc-per-node=N``; one process is a mesh of one):
@@ -164,7 +163,9 @@ def make_predict(model, stochastic: bool, temp: float, dp=None,
     gate uniforms into its static buffers and the graph makes the Gumbels,
     while given or injected Gumbels have a graph of their own. On the CPU
     the same static-buffer path runs eagerly. ``jit=False`` gives the
-    eager forward."""
+    eager forward. On a mesh, leaving the group (``parallel.mesh.
+    shutdown``) releases the graphs of a `predict` still held, which then
+    raises."""
     from gltvae_torch.models.ccvae import Temps
     from gltvae_torch.ops.preprocess import dequant
     from gltvae_torch.train.graphs import CapturedPass, graph_pool, noise_form

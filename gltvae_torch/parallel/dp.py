@@ -32,9 +32,9 @@ chunk, resident, eval and ELBO makers. With it
   batches'.
 
 The makers capture these steps as they do one device's (gltvae jits its
-parallel makers; ``steps.resolve_jit``'s rule): over NCCL each rank's
-dispatch is one CUDA graph with its collectives inside
-(``train/graphs.py``). For that the host part
+parallel makers; ``steps.resolve_jit``'s rule): over NCCL, at every
+world size, each rank's dispatch is one CUDA graph with its collectives
+inside (``train/graphs.py``). For that the host part
 (``draws``; an eval or ELBO pass's ``steps.draw_eval_noise`` and
 ``draw_noise`` with ``out=``) draws the global batch's raw variates into
 global-size static buffers (the gates' uniforms, not their Gumbels), and

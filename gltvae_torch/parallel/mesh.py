@@ -29,6 +29,15 @@ memory, so a gloo mesh over CUDA tensors runs eagerly. ``collectives``
 counts the collective calls made through a ``Mesh`` in this process (one
 a backend call; a capture's recording is one, a graph's replay makes
 none), so that a capture can say how many its graph holds.
+
+A graph that holds NCCL's kernels holds the communicator too: NCCL's
+destroy waits until every such graph is gone, so a process that left its
+group with one alive would block there for good. Each program captured
+with the group's collectives is therefore registered here (``register``,
+weakly: the registry keeps nothing alive), and ``shutdown`` releases every
+live one (its graph reset and dropped) before it destroys the group,
+whoever still holds the program. A released program raises if it is run
+again; nothing runs eagerly in its place.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import dataclasses
 import gc
 import os
 import time
+import weakref
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -51,9 +61,36 @@ DATA_AXIS = 'data'
 collectives = 0
 
 
+#: The live programs whose graphs hold this process's group's collectives
+#: (``register``), weakly held.
+_captured: 'weakref.WeakSet' = weakref.WeakSet()
+
+
 def _issued() -> None:
     global collectives
     collectives += 1
+
+
+def register(program) -> None:
+    """Have ``shutdown`` release `program` (a ``train.graphs.Captured``
+    whose graph was captured with this group's collectives) before it
+    leaves the group. The registry holds it weakly: a program its holders
+    drop leaves the registry."""
+    _captured.add(program)
+
+
+def registered() -> list:
+    """The live registered programs."""
+    return list(_captured)
+
+
+def release_captured() -> None:
+    """Release every live registered program (``Captured.release``: its
+    graph reset and dropped, a later run raises) and empty the registry.
+    An error in a release propagates."""
+    for program in list(_captured):
+        program.release()
+        _captured.discard(program)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,15 +231,17 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 def shutdown() -> None:
     """Leave the default group, if this process is in one. The captured
     programs this process no longer references are freed first
-    (``gc.collect``: a Trainer's graphs may sit in a reference cycle) and
-    the device finishes its work: destroying NCCL's communicator while a
-    CUDA graph that holds its kernels is alive can block. A caller that
-    keeps such a graph (a live Trainer, a predict function) drops it
-    before it leaves."""
+    (``gc.collect``: a Trainer's graphs may sit in a reference cycle), the
+    device finishes its work, and every program still registered is
+    released (``release_captured``), so that no live graph holds NCCL's
+    kernels when the group is destroyed (NCCL's destroy would wait for
+    it). A caller may keep its Trainer or predict function: its captured
+    programs raise if run after this."""
     if dist.is_initialized():
         gc.collect()
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        release_captured()
         dist.destroy_process_group()
 
 

@@ -54,6 +54,5 @@ def make_shardmap_train_steps(model, train_cfg, mesh: Mesh,
     """(sup_step, unsup_step) with per-rank noise and explicitly averaged
     gradients; the signatures of ``make_train_steps`` (x, y this rank's
     rows), captured by its rule (``steps.resolve_jit``: by default on an
-    NCCL mesh of one rank and on the CPU, with ``jit=True`` on an NCCL
-    mesh of more, never on gloo over CUDA)."""
+    NCCL mesh of any size and on the CPU, never on gloo over CUDA)."""
     return make_train_steps(model, train_cfg, dp=_RankNoise(mesh), jit=jit)

@@ -82,7 +82,10 @@ on its own schedule, and in the default ``'global'`` mode such a query
 from another thread during a capture is an error whenever the two meet
 (a race no run can rule out by passing); the capturing thread's own
 calls are checked in either mode. ``Captured.collectives`` counts the
-collectives a capture issued (for the graph audit).
+collectives a capture issued (for the graph audit). Such a program is
+registered with the mesh at its capture (``parallel.mesh.register``), and
+``parallel.mesh.shutdown`` releases it (``Captured.release``) before the
+process leaves the group: a run after that raises.
 """
 
 from __future__ import annotations
@@ -222,6 +225,8 @@ class Captured:
         self.augment_launches = 0
         #: collectives one replay makes (counted at the capture)
         self.collectives = 0
+        #: set by ``release``: the graph is gone and a run raises
+        self.released = False
 
     def buffer(self, shape, dtype) -> torch.Tensor:
         """A static input of `shape` and `dtype` on the program's
@@ -239,7 +244,13 @@ class Captured:
 
     def check(self, owner) -> None:
         """Raise unless `owner` is the one this program was captured on
-        (or nothing is captured yet)."""
+        (or nothing is captured yet), and if the program was released."""
+        if self.released:
+            raise RuntimeError(
+                f'a captured program was run after this process left its '
+                f'process group: leaving it released the program\'s graph, '
+                f'which held the group\'s collectives; make the steps anew '
+                f'in a new group')
         if self.graph is not None and owner is not self.owner:
             raise ValueError(
                 f'a captured program was called with another '
@@ -292,12 +303,24 @@ class Captured:
         self.augment_launches = preprocess.augment_launches - warm[1]
         self.collectives = _mesh.collectives - warm[2]
         preprocess.launches, preprocess.augment_launches = counts
+        if self.dp is not None and self.dp.mesh.group is not None:
+            _mesh.register(self)
+
+    def release(self) -> None:
+        """Reset and drop the graph, its outputs and its pool, and mark the
+        program released, so that a later run raises (``check``):
+        ``parallel.mesh.shutdown`` does this to every program captured
+        with the group's collectives before it leaves the group."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.outputs = self.pool = None
+        self.released = True
 
     def __call__(self, owner) -> Dict[str, torch.Tensor]:
         """One run on the static inputs: replayed where captured (captured
         at the first call), else run eagerly. Returns the outputs as new
         tensors. A captured program raises for another owner than its
-        own."""
+        own, and a released one always."""
         self.check(owner)
         if self.capture is None:
             grad = torch.enable_grad() if self.writes else torch.no_grad()

@@ -53,10 +53,8 @@ the others wait at a barrier after each save; every rank restores the same
 checkpoint on resume; the throughput meter counts global images.
 
 **Captured dispatches** (``jit``, by default on one device and on an NCCL
-mesh of one rank, with ``jit=True`` on an NCCL mesh of more, which warns:
-the captured CLI at two ranks did not finish on four cards, fault F4, its
-cause not yet known; gltvae's
-jitted dispatches; ``steps.resolve_jit``): every dispatch is a CUDA graph,
+mesh of any size; gltvae's jitted dispatches; ``steps.resolve_jit``):
+every dispatch is a CUDA graph,
 captured at its first call for each kind, mask pattern, input shape and
 noise form and replayed from then on (``train/graphs.py``; the host part
 draws the raw noise, and the graph makes the gate Gumbels from their
@@ -69,8 +67,10 @@ all_gather, a resident dispatch's row exchange), and every rank captures
 and replays the same graphs in the same order. The Trainer passes the
 gating temperature at every dispatch, so the per-epoch decay reaches the
 graphs' static temperature; a resume or ``load_params`` writes into the
-tensors the graphs read, on every rank. ``jit=False`` runs every dispatch
-eagerly, for comparison. On the CPU the static-buffer path runs eagerly;
+tensors the graphs read, on every rank. When the process leaves its
+group (``parallel.mesh.shutdown``, as ``cli.main`` ends) a mesh Trainer's
+graphs are released, held or not, and its dispatches raise from then on.
+``jit=False`` runs every dispatch eagerly, for comparison. On the CPU the static-buffer path runs eagerly;
 on a gloo mesh over CUDA tensors the dispatches are eager, and
 ``jit=True`` there raises (``steps.resolve_jit``).
 
@@ -87,7 +87,6 @@ import logging
 import math
 import os
 import time
-import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -138,14 +137,6 @@ class Trainer:
         # captured dispatches by default, but on a gloo mesh over CUDA
         # tensors, where asking for them raises
         self._jit = resolve_jit(jit, mesh)
-        if self._jit and mesh is not None and mesh.world > 1 \
-                and mesh.device.type == 'cuda':
-            warnings.warn(
-                f'a captured Trainer on an NCCL mesh of {mesh.world} ranks: '
-                f'the captured data-parallel CLI at 2 ranks did not finish '
-                f'on four cards, for a cause not yet known (fault F4 in '
-                f'ROADMAP.md); jit=None keeps this mesh eager',
-                RuntimeWarning, stacklevel=2)
         for name, mode in (('resident_eval', resident_eval),
                            ('resident_train', resident_train)):
             if mode not in ('auto', 'off'):

@@ -15,9 +15,9 @@ By default every maker here is captured (``jit``, gltvae's ``jax.jit``):
 the device part of each dispatch is a CUDA graph replayed on a CUDA
 device (``train/graphs.py``), and on the CPU the same static-buffer path
 runs eagerly; ``jit=False`` runs everything eagerly. The rule on a mesh
-is ``resolve_jit``'s: captured over NCCL (by default on one rank, with
-``jit=True`` on more), the static-buffer path on the CPU, eager over gloo
-on CUDA tensors (where ``jit=True`` raises).
+is ``resolve_jit``'s: captured over NCCL at every size, the static-buffer
+path on the CPU, eager over gloo on CUDA tensors (where ``jit=True``
+raises).
 Captured, each dispatch is one replay:
 - a train step (``make_train_steps``), one graph a step kind and input
   shape;
@@ -273,16 +273,14 @@ def remat(fn: Callable, mode: str) -> Callable:
 def resolve_jit(jit: Optional[bool], dp) -> bool:
     """Whether a maker's dispatches are captured. `dp` is a
     ``DataParallel`` (or the Trainer's mesh), read through its mesh's
-    record: on one device, on an NCCL mesh of one rank and on a CPU mesh,
-    captured by default (on the CPU, the static-buffer path run eagerly);
-    on a gloo mesh over CUDA tensors eager by default, and ``jit=True``
-    raises. On an NCCL mesh of more than one rank the dispatches are eager
-    by default and captured with ``jit=True``: on four cards every
-    captured maker, shardmap step and inference pass is bit-equal to
-    eager at 2 and 4 ranks (``chip_smoke.py`` phases 37 and 42), but the
-    data-parallel CLI captured at 2 ranks did not finish (phase 39; fault
-    F4 in ROADMAP, its cause not yet known), so the default there stays
-    eager and a Trainer given ``jit=True`` there warns."""
+    record: on one device, on an NCCL mesh of any size (gltvae jits its
+    mesh dispatches at every size) and on a CPU mesh, captured by default
+    (on the CPU, the static-buffer path run eagerly); on a gloo mesh over
+    CUDA tensors eager by default, and ``jit=True`` raises. A graph that
+    holds NCCL's kernels keeps NCCL from destroying its communicator, so
+    a process that left its group with a captured Trainer alive blocked
+    there (fault F4); ``parallel.mesh.shutdown`` now releases every such
+    graph before it leaves."""
     mesh = None if dp is None else getattr(dp, 'mesh', dp)
     if mesh is not None and mesh.device.type == 'cuda':
         if not mesh.capturable:
@@ -292,8 +290,6 @@ def resolve_jit(jit: Optional[bool], dp) -> bool:
                     f'gloo moves CUDA tensors through host memory, which a '
                     f'CUDA graph cannot hold; use NCCL (one rank a card) '
                     f'or pass jit=False')
-            return False
-        if jit is None and mesh.world > 1:
             return False
     return True if jit is None else jit
 

@@ -46,7 +46,7 @@ from gltvae_torch.train.loop import Trainer
 from gltvae_torch.train.state import (create_train_state, init_model,
                                       keras_adam_update, keras_alpha,
                                       next_alpha)
-from gltvae_torch.train.steps import make_train_steps
+from gltvae_torch.train.steps import make_train_steps, resolve_jit
 
 torch.set_num_threads(2)
 
@@ -466,10 +466,9 @@ def _mesh(name, world=2):
 def test_jit_with_dp_raises(name):
     """jit=True on a gloo mesh over CUDA tensors raises and says why (a
     graph cannot hold gloo's trip through host memory), and its default
-    is eager; NCCL and CPU meshes give JitSteps with jit=True, and by
-    default on a CPU mesh and an NCCL mesh of one rank; an NCCL mesh of
-    two ranks is eager by default. The rule reads only the mesh's record,
-    so no card is needed."""
+    is eager; NCCL and CPU meshes give JitSteps with jit=True and by
+    default, an NCCL mesh of two ranks as one of one. The rule reads only
+    the mesh's record, so no card is needed."""
     from gltvae_torch.parallel.dp import DataParallel
     model_cfg, train_cfg = configs()
     model = init_model(model_cfg, train_cfg, mu_init(), CPU)
@@ -484,10 +483,11 @@ def test_jit_with_dp_raises(name):
         assert all(isinstance(s, JitStep) for s in make_train_steps(
             model, train_cfg, dp=dp, jit=True))
         for world in (1, 2):
-            by_default = make_train_steps(
-                model, train_cfg, dp=DataParallel(_mesh(name, world)))
-            want = name != 'nccl-cuda' or world == 1
-            assert all(isinstance(s, JitStep) == want for s in by_default)
+            mesh = _mesh(name, world)
+            assert resolve_jit(None, mesh) is True
+            by_default = make_train_steps(model, train_cfg,
+                                          dp=DataParallel(mesh))
+            assert all(isinstance(s, JitStep) for s in by_default)
     assert not any(isinstance(s, JitStep) for s in make_train_steps(
         model, train_cfg, dp=dp, jit=False))
 
@@ -508,25 +508,32 @@ def test_trainer_jit_on_a_mesh_raises(name):
     assert isinstance(tr._sup_step, JitStep)
 
 
-def test_a_captured_trainer_past_one_nccl_rank_warns():
-    """jit=True for a Trainer on an NCCL mesh of two ranks warns of fault
-    F4 (the captured CLI there did not finish) before anything touches a
-    card; the step makers, which passed there, do not warn, nor does the
-    Trainer's eager default."""
+def test_a_captured_trainer_past_one_nccl_rank_warns(monkeypatch):
+    """A Trainer on an NCCL mesh of two ranks takes captured steps by
+    default and warns of nothing, as the step makers do: its rule
+    (``resolve_jit``) says captured, with jit=None and jit=True, before
+    anything touches a card."""
     from gltvae_torch.parallel.dp import DataParallel
+    from gltvae_torch.train import loop
     model_cfg, train_cfg = configs()
     mesh = _mesh('nccl-cuda', world=2)
-    with pytest.warns(RuntimeWarning, match='fault F4'), \
-            pytest.raises(AssertionError, match='not compiled with CUDA'):
-        Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=True,
-                mesh=mesh)
+    chosen = []
+
+    def rule(jit, m):
+        chosen.append(resolve_jit(jit, m))
+        return chosen[-1]
+    monkeypatch.setattr(loop, 'resolve_jit', rule)
     model = init_model(model_cfg, train_cfg, mu_init(), CPU)
     with warnings.catch_warnings():
         warnings.simplefilter('error')
         assert all(isinstance(s, JitStep) for s in make_train_steps(
-            model, train_cfg, dp=DataParallel(mesh), jit=True))
-        with pytest.raises(AssertionError, match='not compiled with CUDA'):
-            Trainer(model_cfg, train_cfg, mu_init=mu_init(), mesh=mesh)
+            model, train_cfg, dp=DataParallel(mesh)))
+        for jit in (None, True):
+            with pytest.raises(AssertionError,
+                               match='not compiled with CUDA'):
+                Trainer(model_cfg, train_cfg, mu_init=mu_init(), jit=jit,
+                        mesh=mesh)
+    assert chosen == [True, True]
 
 
 # ------------------------------------------------------------------ (8)

@@ -310,6 +310,108 @@ def cli_files(mesh, where, argv: list, slow_rank0: bool = False) -> dict:
                 os.path.join(run_dir, 'result.json'))}
 
 
+def fake_graphs(events: list):
+    """A capture function standing in for CUDA graphs on the CPU: the
+    capture records nothing (no run), each replay runs the device part
+    and writes its results into the outputs, and ``reset`` appends
+    ('reset', the graph's id) to `events`."""
+    def capture(fn, pool, error_mode='global'):
+        out = {}
+
+        class Graph:
+            def replay(self):
+                out.update(fn())
+
+            def reset(self):
+                events.append(('reset', id(self)))
+        return Graph(), out
+    return capture
+
+
+def _shapes(program) -> list:
+    """A program's static inputs' names, shapes and dtypes."""
+    return sorted((k, tuple(v.shape), str(v.dtype))
+                  for k, v in vars(program).items()
+                  if isinstance(v, torch.Tensor))
+
+
+def cli_release(mesh, where, argv: list) -> dict:
+    """``cli`` on this rank as chip_smoke.py's phase 39 runs it (host-
+    sharded loaders past one rank, the best-checkpoint restore and the
+    test pass), every program captured through ``fake_graphs`` and every
+    Trainer held past ``cli.main``, as phase 39 holds them. Returns the
+    programs in the order of their captures, the collectives in the order
+    they were issued, the events (each graph's reset, the group's
+    destroy), whether the process left its group, whether each program
+    was released and what a held program raises when run again."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from gltvae_torch.parallel import mesh as pmesh
+    from gltvae_torch.train import graphs
+    from gltvae_torch.train.loop import Trainer
+    events, programs, calls, trainers, graph_ids = [], [], [], [], []
+
+    def on_capture(fn):
+        def run(self, owner):
+            fn(self, owner)
+            programs.append(self)
+            graph_ids.append(id(self.graph))
+        return run
+
+    def issued(name):
+        def wrap(fn):
+            def run(t, *a, **k):
+                calls.append((name, tuple(t.shape), str(t.dtype)))
+                return fn(t, *a, **k)
+            return run
+        return wrap
+
+    def destroyed(fn):
+        def run(*a, **k):
+            events.append(('destroy', len(pmesh.registered())))
+            return fn(*a, **k)
+        return run
+
+    def on_train(fn):
+        def run(self, *a, **k):
+            trainers.append(self)
+            return fn(self, *a, **k)
+        return run
+    undo = [chip_smoke.patched(graphs, 'graph_capture',
+                               lambda f: lambda dev: fake_graphs(events)),
+            chip_smoke.patched(graphs.Captured, '_capture', on_capture),
+            chip_smoke.patched(dist, 'destroy_process_group', destroyed),
+            chip_smoke.patched(Trainer, 'train', on_train)]
+    undo += [chip_smoke.patched(dist, n, issued(n)) for n in (
+        'all_reduce', 'broadcast', 'all_gather_into_tensor')]
+    try:
+        result = cli(None, where, argv)['result']
+    finally:
+        for u in reversed(undo):
+            u()
+    raised = []
+    for p in programs:
+        try:
+            p(p.owner)
+            raised.append(None)
+        except RuntimeError as e:
+            raised.append(str(e))
+    tr = trainers[-1]
+    return {'result': result, 'jit': tr._jit,
+            'mesh': (tr.mesh.rank, tr.mesh.world, tr.mesh.backend),
+            'local_batches': tr.local_batches,
+            'programs': [(type(p).__name__, getattr(p, 'mask', None),
+                          _shapes(p)) for p in programs],
+            'collectives': calls,
+            'events': [(e[0], graph_ids.index(e[1])) if e[0] == 'reset'
+                       else e for e in events],
+            'left': not dist.is_initialized(),
+            'released': [p.released and p.graph is None for p in programs],
+            'registered_after': len(pmesh.registered()),
+            'raised': raised}
+
+
 def infer_slow(mesh, argv: list) -> dict:
     """``infer`` with rank 0 sleeping before each batch's rows are written;
     this rank's count of CSV rows just after ``infer.main`` returns."""
@@ -525,9 +627,7 @@ def _program_log(log: list):
         if self not in seen:
             seen.add(self)
             log.append((type(self).__name__, getattr(self, 'mask', None),
-                        sorted((k, tuple(v.shape), str(v.dtype))
-                               for k, v in vars(self).items()
-                               if isinstance(v, torch.Tensor))))
+                        _shapes(self)))
         return call(self, owner)
     graphs.Captured.__call__ = run
     return lambda: setattr(graphs.Captured, '__call__', call)
@@ -611,5 +711,6 @@ SCENARIOS = {'steps': steps, 'sweep': sweep, 'shardmap': shardmap,
              'trainer': trainer, 'trainer_set': trainer_set,
              'debug_nans': debug_nans, 'resume': resume, 'infer': infer,
              'cli': cli, 'cli_files': cli_files, 'infer_slow': infer_slow,
+             'cli_release': cli_release,
              'dp_graphs': dp_graphs, 'graphs_vs_gltvae': graphs_vs_gltvae,
              'debug_nans_dp': debug_nans_dp}
