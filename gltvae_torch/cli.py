@@ -7,7 +7,8 @@
         [--cache-decoded | --cache-dir DIR] [--augment-pad 4] \\
         [--steps-per-dispatch 4] [--image-size 128 --compute-dtype \\
          bfloat16 --input-s2d on --output-s2d on --remat dots] \\
-        [--resident-train off] [--tensorboard DIR] [--debug-nans]
+        [--resident-train off] [--tensorboard DIR] [--debug-nans] \
+        [--trace-out run.trace.json]
     python -m gltvae_torch.cli --synthetic --do-train ...   # no files
     torchrun --nproc-per-node=N -m gltvae_torch.cli --mesh ...  # DP
     python -m gltvae_torch.cli --dist-coordinator HOST:PORT \
@@ -35,6 +36,11 @@ On an NCCL mesh of any size every dispatch is a CUDA graph with its
 collectives inside, as on one device (``train/graphs.py``,
 ``train/steps.py::resolve_jit``); the run leaves its group through
 ``parallel.mesh.shutdown``, which releases those graphs first.
+
+``--trace-out PATH`` records the host loop's spans and counters for the
+whole run (``gltvae_torch.trace``) and writes them, when the run ends, as
+a Chrome trace that Perfetto opens: PATH on one device, PATH.rank<k> for
+rank k of a mesh of more than one rank.
 
 It takes train.py's flags but ``--prng`` and the compilation-cache flags;
 ``--device`` stands for ``--platform``.
@@ -176,6 +182,10 @@ def parse_args(argv=None):
     p.add_argument('--device', default='cuda',
                    help="'cuda' (default; the rank's card on a mesh) or "
                         "'cpu'")
+    p.add_argument('--trace-out', default=None, metavar='PATH',
+                   help="record the host loop's spans and counters and "
+                        'write them as a Chrome trace: PATH on one device, '
+                        'PATH.rank<k> on a mesh')
     return p.parse_args(argv)
 
 
@@ -387,16 +397,39 @@ def make_mesh(args):
     return mesh
 
 
+def _write_trace(path: str, mesh) -> None:
+    """The run's spans and counters as a Chrome trace at `path`, or at
+    `path`.rank<k> for rank k of a mesh of more than one rank."""
+    from gltvae_torch import trace
+    rank = 0 if mesh is None else mesh.rank
+    if mesh is not None and mesh.world > 1:
+        path = f'{path}.rank{rank}'
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    trace.write(path, rank)
+    logger.info('trace: %d spans (%d dropped) -> %s', len(trace.records()),
+                trace.dropped(), path)
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format='%(asctime)s %(levelname)s '
                         '%(name)s %(message)s')
     args = parse_args(argv)
     import torch.distributed as dist
+
+    from gltvae_torch import trace
     owned = not dist.is_initialized()      # a group this run joins, it ends
+    was = trace.mode()
+    mesh = None
     try:
         mesh = make_mesh(args)
+        if args.trace_out:
+            trace.reset()
+            trace.set_mode('on')
         results = {sup: run(args, sup, mesh) for sup in args.sup}
     finally:
+        if args.trace_out and trace.mode() == 'on':
+            trace.set_mode(was)
+            _write_trace(args.trace_out, mesh)
         if owned:
             from gltvae_torch.parallel.mesh import shutdown
             shutdown()

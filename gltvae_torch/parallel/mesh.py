@@ -52,7 +52,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from gltvae_torch import resolve_device
+from gltvae_torch import resolve_device, trace
 
 DATA_AXIS = 'data'
 
@@ -158,7 +158,8 @@ class Mesh:
     def barrier(self) -> None:
         """Every rank waits here for the others (one tiny all_reduce on the
         rank's device, so NCCL needs no barrier device list)."""
-        self.all_reduce_(torch.zeros(1, device=self.device))
+        with trace.span('wait.barrier'):
+            self.all_reduce_(torch.zeros(1, device=self.device))
 
 
 def _rank_device(device, local_rank: int) -> torch.device:

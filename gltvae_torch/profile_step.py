@@ -27,7 +27,11 @@ without its host-to-device copy). Prints the wall time per dispatch
 (profiler off), the device time per dispatch (the sum of its kernels,
 from a second, profiled run), the kernel launches per dispatch and the
 kernels that take the most device time, and writes a Chrome trace under
---out. ``--summary PATH`` also writes those numbers as JSON under the
+--out. The profiled run records the program's spans too (the tracer,
+``gltvae_torch.trace``, records under any profiler): they are in the
+profiler's trace where it records host events (on the CPU), beside it as
+``<mode>_spans.json``, and in the summary as each span's milliseconds a
+dispatch. ``--summary PATH`` also writes those numbers as JSON under the
 mode's key of PATH (other modes' entries in PATH are kept): the port's
 form of profile_train.py's xprof summary. Runs on ``cuda`` unless
 ``--device cpu`` is given; on the CPU the times are the CPU's op times.
@@ -184,6 +188,17 @@ def kernel_table(events, dispatches: int, top: int) -> dict:
     }
 
 
+def span_table(records, dispatches: int) -> dict:
+    """Milliseconds a dispatch of each span name in `records`
+    (``trace.records()``), summed over the spans of that name."""
+    out = {}
+    for r in records:
+        if r['end_ns']:
+            out[r['name']] = (out.get(r['name'], 0.0)
+                              + (r['end_ns'] - r['start_ns']) / 1e6)
+    return {k: v / dispatches for k, v in sorted(out.items())}
+
+
 def _self_us(e) -> float:
     return (e.self_device_time_total
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -232,7 +247,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     from torch.profiler import ProfilerActivity, profile
 
-    from gltvae_torch import resolve_device
+    from gltvae_torch import resolve_device, trace
     dev = resolve_device(args.device)
     cuda = dev.type == 'cuda'
     wait = torch.cuda.synchronize if cuda else (lambda: None)
@@ -250,11 +265,15 @@ def main(argv=None):
     activity = ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU
     kind = (torch.autograd.DeviceType.CUDA if cuda
             else torch.autograd.DeviceType.CPU)
+    trace.reset()
     with profile(activities=[activity]) as prof:
         for _ in range(args.steps):
             out = run()
         wait()
-    events = [e for e in prof.key_averages() if e.device_type == kind]
+    spans = span_table(trace.records(), args.steps)
+    # the spans' own ranges are host time, not the device's
+    events = [e for e in prof.key_averages()
+              if e.device_type == kind and e.key not in spans]
     table = kernel_table(events, args.steps, args.top)
     dev_ms, n_kernels = (table['device_ms_per_dispatch'],
                          table['launches_per_dispatch'])
@@ -288,10 +307,16 @@ def main(argv=None):
         print(f'{k["device_ms_per_dispatch"]:14.4f} '
               f'{k["calls_per_dispatch"]:10.1f}  {k["name"][:90]}')
     os.makedirs(args.out, exist_ok=True)
-    trace = os.path.join(args.out,
-                         f'{args.mode.replace("-", "_")}_trace.json')
-    prof.export_chrome_trace(trace)
-    print(f'trace: {trace}')
+    trace_path = os.path.join(args.out,
+                              f'{args.mode.replace("-", "_")}_trace.json')
+    prof.export_chrome_trace(trace_path)
+    print(f'trace: {trace_path}')
+    spans_path = os.path.join(args.out,
+                              f'{args.mode.replace("-", "_")}_spans.json')
+    trace.write(spans_path)
+    print(f'spans: {spans_path}')
+    for name, ms in spans.items():
+        print(f'{ms:14.4f} ms/{unit}  span {name}')
     record = dict(table, mode=args.mode, card=card, device=str(dev),
                   batch_size=bs, steps_per_dispatch=(
                       inner if args.mode.startswith('train') else None),
@@ -301,7 +326,7 @@ def main(argv=None):
                   config={k: getattr(args, k) for k in (
                       'image_size', 'compute_dtype', 'input_s2d',
                       'output_s2d', 'remat', 'resident_train')},
-                  trace=trace)
+                  trace=trace_path, spans=spans, spans_trace=spans_path)
     if args.summary:
         write_summary(args.summary, args.mode, record)
         print(f'summary -> {args.summary}')

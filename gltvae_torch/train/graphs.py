@@ -86,6 +86,11 @@ collectives a capture issued (for the graph audit). Such a program is
 registered with the mesh at its capture (``parallel.mesh.register``), and
 ``parallel.mesh.shutdown`` releases it (``Captured.release``) before the
 process leaves the group: a run after that raises.
+
+The host part is traced (``gltvae_torch.trace``): its draws as a
+``host.draw`` span, its fills as ``host.fill``, the replay and the
+outputs' clone as ``graph.replay`` and ``graph.outputs``, and a capture,
+warm-up runs included, as the set-up span ``graph.capture``.
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from gltvae_torch import trace
 from gltvae_torch.ops import preprocess
 from gltvae_torch.parallel import mesh as _mesh
 from gltvae_torch.train.state import TrainState, next_alpha, step_seed
@@ -202,6 +208,8 @@ class Captured:
     writes = False
     #: what the owner is called in ``check``'s message
     owner_kind = 'state'
+    #: the key its maker files it under (the capture span's attribute)
+    key = None
 
     def __init__(self, device: torch.device, pool=None, dp=None):
         self.device = torch.device(device)
@@ -281,6 +289,11 @@ class Captured:
             state.step, state.adam_count = step, count
 
     def _capture(self, owner) -> None:
+        with trace.setup_span('graph.capture', kind=type(self).__name__,
+                              key=str(self.key)):
+            self._warm_up_and_capture(owner)
+
+    def _warm_up_and_capture(self, owner) -> None:
         counts = preprocess.launches, preprocess.augment_launches
         if self.device.type == 'cuda':
             side = torch.cuda.Stream(self.device)
@@ -328,10 +341,12 @@ class Captured:
                 return _clone(self._run(owner))
         if self.graph is None:
             self._capture(owner)
-        self.graph.replay()
+        with trace.span('graph.replay'):
+            self.graph.replay()
         preprocess.launches += self.dequant_launches
         preprocess.augment_launches += self.augment_launches
-        return _clone(self.outputs)
+        with trace.span('graph.outputs'):
+            return _clone(self.outputs)
 
 
 def noise_form(noise: dict) -> str:
@@ -486,17 +501,21 @@ class JitStep:
             step = self.steps[(x, y, form)] = CapturedStep(
                 self.device_part, x, y, self.device, self.pool, crop,
                 self.dp)
+            step.key = (x, y, form)
         return step
 
     def _run(self, step: CapturedStep, state: TrainState, gating_temp,
              noise):
         step.check(state)       # before the host part touches the state
         b = step.x.shape[0]
-        step.set_noise(self.host(state, b, noise, out=step.noise))
-        if step.crop is not None:
-            step.crop.draw(state.step, b, self.device, out=step.crop_draws)
-        step.temp.fill_(gating_temp)
-        next_alpha(state, self.lr, out=step.alpha)
+        with trace.span('host.draw'):
+            step.set_noise(self.host(state, b, noise, out=step.noise))
+        with trace.span('host.fill'):
+            if step.crop is not None:
+                step.crop.draw(state.step, b, self.device,
+                               out=step.crop_draws)
+            step.temp.fill_(gating_temp)
+            next_alpha(state, self.lr, out=step.alpha)
         metrics = step(state)
         state.step += 1
         return state, metrics
@@ -596,11 +615,11 @@ class JitChunk:
     noise form (the steps' ``host.form``), sharing the steps' graph
     pool.
 
-    Its host part does, in step order, what n single steps would: draw
-    step j's noise from ``state.next_generator()`` (and its augment
-    offsets) at ``state.step``, advance the Adam count into ``alpha[j]``,
-    advance ``state.step``; then it replays once. The result equals n
-    single steps bit for bit."""
+    Its host part makes what n single steps would: step j's noise from
+    ``state.next_generator()`` at ``state.step`` = step0 + j, then each
+    step's augment offsets and its ``alpha[j]`` (the Adam count advanced a
+    step at a time); then it replays once. The result equals n single
+    steps bit for bit."""
 
     def __init__(self, sup: JitStep, unsup: JitStep):
         self.kinds = {True: sup, False: unsup}
@@ -622,23 +641,30 @@ class JitChunk:
             chunk = self.chunks[key] = CapturedChunk(
                 {k: s.device_part for k, s in self.kinds.items()}, mask, x,
                 y, self.device, self.pool, crop, sources, self.dp)
+            chunk.key = key
         return chunk
 
     def _run(self, chunk: CapturedChunk, state: TrainState, gating_temp):
         chunk.check(state)      # before the host part touches the state
         b, step0 = chunk.batch, state.step
+        # each step's noise, crops and alpha come from streams of their own
+        # (its generator, its crop generator, the Adam count), so drawing
+        # every noise first leaves each value as the steps in turn make it
         try:
-            for j, m in enumerate(chunk.mask):
-                state.step = step0 + j      # the step's own draws
-                chunk.noise.fill(j, self.kinds[m].host(
-                    state, b, None, out=chunk.noise.out(j)))
+            with trace.span('host.draw'):
+                for j, m in enumerate(chunk.mask):
+                    state.step = step0 + j      # the step's own draws
+                    chunk.noise.fill(j, self.kinds[m].host(
+                        state, b, None, out=chunk.noise.out(j)))
+        finally:
+            state.step = step0
+        with trace.span('host.fill'):
+            for j in range(len(chunk.mask)):
                 if chunk.crop is not None:
                     chunk.crop.draw(step0 + j, b, self.device, out=tuple(
                         d[j] for d in chunk.crop_draws))
                 next_alpha(state, self.lr, out=chunk.alpha[j])
-        finally:
-            state.step = step0
-        chunk.temp.fill_(gating_temp)
+            chunk.temp.fill_(gating_temp)
         metrics = chunk(state)
         state.step = step0 + len(chunk.mask)
         return state, metrics
@@ -769,16 +795,19 @@ class JitPass:
             p = self.passes[key] = CapturedPass(
                 self.fn, n, x, y, self.device, self.pool, source,
                 stochastic=self.draw is not None, dp=self.dp)
+            p.key = key
         return p
 
     def run(self, p: CapturedPass, model, generator, gating_temp):
         """The host part and one run of `p`: values [n] as new tensors."""
         p.check(model)          # before the generator is touched
         if self.draw is not None:
-            for j in range(p.n):
-                p.noise.fill(j, self.draw(model, p.batch, generator,
-                                          p.noise.out(j)))
-        p.temp.fill_(gating_temp)
+            with trace.span('host.draw'):
+                for j in range(p.n):
+                    p.noise.fill(j, self.draw(model, p.batch, generator,
+                                              p.noise.out(j)))
+        with trace.span('host.fill'):
+            p.temp.fill_(gating_temp)
         return p(model)['value']
 
     def stacked(self, model, xs, ys, generator, gating_temp,

@@ -74,6 +74,14 @@ graphs are released, held or not, and its dispatches raise from then on.
 on a gloo mesh over CUDA tensors the dispatches are eager, and
 ``jit=True`` there raises (``steps.resolve_jit``).
 
+**Spans** (``gltvae_torch.trace``): an epoch is a ``train.epoch`` span and
+each dispatch a ``train.dispatch`` span, whose request id is its first
+global step, holding its ``train.batch``, ``train.h2d``, the step's host
+part and ``train.log``; an eval or ELBO pass is an ``eval.pass`` whose
+request id is its number; the host's waits on the device are ``wait.*``
+spans (``wait.h2d`` the resident index rows' blocking copy, inside its
+``train.h2d``). They record nothing unless the tracer is on or a profiler runs.
+
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
 for NaN and names the first op that made one (``utils/debug_nans.py``,
@@ -92,7 +100,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from gltvae_torch import resolve_device
+from gltvae_torch import resolve_device, trace
 from gltvae_torch.config import (CELEBA_EASY_LABELS, CELEBA_LABELS,
                                  ModelConfig, TrainConfig, apply_precision,
                                  check_supported)
@@ -220,6 +228,8 @@ class Trainer:
         # eval draws: one generator from seed+1, advanced batch by batch
         self._eval_gen = torch.Generator(device=self.device)
         self._eval_gen.manual_seed(step_seed(train_cfg.seed + 1, 0))
+        #: eval and ELBO passes run so far (their spans' request ids)
+        self._passes = 0
 
     def _replicate(self) -> None:
         """Rank 0's state on every rank (a collective; no-op off a mesh)."""
@@ -230,15 +240,16 @@ class Trainer:
     def _place(self, batch, stacked: bool = False):
         """A host batch on the device: on a mesh, this rank's rows of it
         (batch axis 1 when `stacked`)."""
-        if self.mesh is not None:
-            from gltvae_torch.parallel.dp import (shard_batch,
-                                                  shard_stacked_batch)
-            batch = (shard_stacked_batch if stacked else shard_batch)(
-                batch, self.mesh, local=self.local_batches)
-        x, y = batch
-        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        y = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
-        return x, y
+        with trace.span('train.h2d'):
+            if self.mesh is not None:
+                from gltvae_torch.parallel.dp import (shard_batch,
+                                                      shard_stacked_batch)
+                batch = (shard_stacked_batch if stacked else shard_batch)(
+                    batch, self.mesh, local=self.local_batches)
+            x, y = batch
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            y = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
+            return x, y
 
     def _augment(self, u8: torch.Tensor) -> torch.Tensor:
         """The augment stage of a padded train batch, [B, ...] or stacked
@@ -359,36 +370,84 @@ class Trainer:
         semi_res = res_train is not None and len(res_train) == 2
 
         for epoch in range(start_epoch, epochs):
-            total, period, sup_batches = self.epoch_schedule(loaders)
-            flags = self._schedule_flags(total, period, sup_batches)
-            sup_iter = unsup_iter = None
-            if res_train is None:
-                sup_iter = iter(loaders['sup']) if 'sup' in loaders else None
-                unsup_iter = (iter(loaders['unsup']) if 'unsup' in loaders
-                              else None)
-            pending_gates = []
-            t_epoch = time.perf_counter()
-            epoch_imgs0 = self.throughput.images_total
-            # semi-sup interleaves (period >= 2) dispatch mixed chunks, and
-            # so do resident sup+unsup splits; other schedules cut uniform
-            # chunks at the first kind flip
-            mixed = scan_on and period > 1
-            i = 0
-            for n in self._chunk_sizes(flags, self.steps_per_dispatch,
-                                       mixed or semi_res):
-                chunk = flags[i:i + n]
+            with trace.span('train.epoch', epoch=epoch):
+                total, period, sup_batches = self.epoch_schedule(loaders)
+                flags = self._schedule_flags(total, period, sup_batches)
+                iters = None
+                if res_train is None:
+                    iters = {m: iter(loaders[m]) for m in ('sup', 'unsup')
+                             if m in loaders}
+                t_epoch = time.perf_counter()
+                epoch_imgs0 = self.throughput.images_total
+                # semi-sup interleaves (period >= 2) dispatch mixed chunks,
+                # and so do resident sup+unsup splits; other schedules cut
+                # uniform chunks at the first kind flip
+                mixed = (scan_on and period > 1) or semi_res
+                self._dispatch_epoch(loaders, res_train, iters, flags, mixed,
+                                     epoch, log_every)
+
+                # --------------------- validation ---------------------
+                if cfg.perc_supervision and 'valid' in loaders:
+                    val_acc = self.evaluate(loaders['valid'])
+                    val_metric = val_acc
+                elif 'valid' in loaders:
+                    val_acc = -np.inf
+                    val_metric = self.test_elbo(loaders['valid'])
+                else:
+                    val_acc = val_metric = -np.inf
+                epoch_time = time.perf_counter() - t_epoch
+                epoch_imgs = self.throughput.images_total - epoch_imgs0
+                logger.info('[Epoch %03d] Val Acc %.3f (%.1fs, %.0f img/s)',
+                            epoch, val_acc, epoch_time,
+                            epoch_imgs / epoch_time if epoch_time > 0
+                            else 0.0)
+                history.append({'epoch': epoch, 'val_accuracy': val_acc,
+                                'val_metric': val_metric,
+                                'epoch_time': epoch_time})
+
+                if val_metric > best_metric:
+                    best_metric = val_metric
+                    best_val_acc = val_acc
+                    self._save(param_dir, 'best',
+                               {'val_accuracy': val_metric})
+
+                if self.model.cfg.gate_type == 'learnable':
+                    self.gating_temp *= cfg.gating_temp_decay
+                    if param_dir is not None:
+                        self._snapshot_gating(param_dir, epoch)
+
+        # 'last' carries the final epoch's metric, so best_step() keeps
+        # pointing at the genuinely best state
+        last_metric = history[-1]['val_metric'] if history else -np.inf
+        self._save(param_dir, 'last', {'val_accuracy': last_metric})
+        self.metrics.flush()
+        return {'best_val_accuracy': best_val_acc,
+                'best_val_metric': best_metric, 'history': history,
+                'images_per_sec': self.throughput.images_per_sec}
+
+    def _dispatch_epoch(self, loaders, res_train: Optional[dict],
+                        iters: Optional[dict], flags, mixed: bool,
+                        epoch: int, log_every: int) -> None:
+        """The train dispatches of one epoch of step kinds `flags`: resident
+        chunks from `res_train`, else batches taken from the loaders'
+        iterators `iters`; each a ``train.dispatch`` span whose request is
+        its first global step."""
+        total, pending_gates, i = len(flags), [], 0
+        for n in self._chunk_sizes(flags, self.steps_per_dispatch, mixed):
+            chunk = flags[i:i + n]
+            with trace.span('train.dispatch', request=int(self.state.step)):
                 if res_train is not None:
                     self.state, ms = self._resident_chunk(
                         loaders, res_train, chunk)
                     n_imgs = n * self.cfg.batch_size
                 else:
-                    bx, by = zip(*(next(sup_iter if f else unsup_iter)
-                                   for f in chunk))
-                    if n > 1:                       # one stacked copy
-                        x, y = self._place((np.stack(bx), np.stack(by)),
-                                           stacked=True)
-                    else:
-                        x, y = self._place((bx[0], by[0]))
+                    with trace.span('train.batch'):
+                        bx, by = zip(*(next(iters['sup' if f else 'unsup'])
+                                       for f in chunk))
+                        # n > 1: one stacked copy
+                        batch = ((np.stack(bx), np.stack(by)) if n > 1
+                                 else (bx[0], by[0]))
+                    x, y = self._place(batch, stacked=n > 1)
                     if self.cfg.augment_pad > 0:
                         x = self._augment(x)
                     if n > 1:
@@ -403,59 +462,26 @@ class Trainer:
                         self.mesh.world if self.local_batches else 1)
                 stacked = res_train is not None or n > 1    # metrics [n]
                 pending_gates.append(ms['c_nan'].any())
-                self.throughput.step(n_imgs)
-                # every inner step on the log_every cadence gets its own
-                # row, so metrics.csv is the same for any steps_per_dispatch
-                for j in range(n):
-                    if (i + j) % log_every == 0:
-                        self.metrics.log(
-                            int(i + j + epoch * total),
-                            {k: (v[j] if stacked else v)
-                             for k, v in ms.items() if k != 'c_nan'},
-                            epoch=epoch, supervised=int(chunk[j]))
+                with trace.span('train.log'):
+                    self.throughput.step(n_imgs)
+                    # every inner step on the log_every cadence gets its
+                    # own row, so metrics.csv is the same for any
+                    # steps_per_dispatch
+                    for j in range(n):
+                        if (i + j) % log_every == 0:
+                            self.metrics.log(
+                                int(i + j + epoch * total),
+                                {k: (v[j] if stacked else v)
+                                 for k, v in ms.items() if k != 'c_nan'},
+                                epoch=epoch, supervised=int(chunk[j]))
                 i += n
                 if i % self.nan_check_every < n or i == total:
-                    if bool(torch.stack(pending_gates).any()):
+                    with trace.span('wait.nan_check'):
+                        nan = bool(torch.stack(pending_gates).any())
+                    if nan:
                         raise NanGateError(
                             f'NaN gates at epoch {epoch} step {i}')
                     pending_gates.clear()
-
-            # ----------------------- validation -----------------------
-            if cfg.perc_supervision and 'valid' in loaders:
-                val_acc = self.evaluate(loaders['valid'])
-                val_metric = val_acc
-            elif 'valid' in loaders:
-                val_acc = -np.inf
-                val_metric = self.test_elbo(loaders['valid'])
-            else:
-                val_acc = val_metric = -np.inf
-            epoch_time = time.perf_counter() - t_epoch
-            epoch_imgs = self.throughput.images_total - epoch_imgs0
-            logger.info('[Epoch %03d] Val Acc %.3f (%.1fs, %.0f img/s)',
-                        epoch, val_acc, epoch_time,
-                        epoch_imgs / epoch_time if epoch_time > 0 else 0.0)
-            history.append({'epoch': epoch, 'val_accuracy': val_acc,
-                            'val_metric': val_metric,
-                            'epoch_time': epoch_time})
-
-            if val_metric > best_metric:
-                best_metric = val_metric
-                best_val_acc = val_acc
-                self._save(param_dir, 'best', {'val_accuracy': val_metric})
-
-            if self.model.cfg.gate_type == 'learnable':
-                self.gating_temp *= cfg.gating_temp_decay
-                if param_dir is not None:
-                    self._snapshot_gating(param_dir, epoch)
-
-        # 'last' carries the final epoch's metric, so best_step() keeps
-        # pointing at the genuinely best state
-        last_metric = history[-1]['val_metric'] if history else -np.inf
-        self._save(param_dir, 'last', {'val_accuracy': last_metric})
-        self.metrics.flush()
-        return {'best_val_accuracy': best_val_acc,
-                'best_val_metric': best_metric, 'history': history,
-                'images_per_sec': self.throughput.images_per_sec}
 
     def _snapshot_gating(self, param_dir: str, epoch: int) -> None:
         """Append this epoch's μ to gating_history.npz ([n, zc, y] + epochs);
@@ -521,13 +547,14 @@ class Trainer:
                         (x0.nbytes + y0.nbytes) * len(ds) >> 20,
                         budget >> 20)
             return None
-        if self.mesh is not None:
-            # this rank's ⌈N/D⌉ rows, the labels whole
-            from gltvae_torch.parallel.dp import place_resident_split
-            x, y = place_resident_split(*ds.fetch(np.arange(len(ds))),
-                                        self.mesh)
-        else:
-            x, y = self._place(ds.fetch(np.arange(len(ds))))
+        with trace.setup_span('resident.copy', rows=len(ds)):
+            if self.mesh is not None:
+                # this rank's ⌈N/D⌉ rows, the labels whole
+                from gltvae_torch.parallel.dp import place_resident_split
+                x, y = place_resident_split(*ds.fetch(np.arange(len(ds))),
+                                            self.mesh)
+            else:
+                x, y = self._place(ds.fetch(np.arange(len(ds))))
         self._resident_data[id(loader)] = (loader, x, y)
         return x, y
 
@@ -588,9 +615,13 @@ class Trainer:
     def _resident_chunk(self, loaders, res_train: dict, chunk):
         """One resident dispatch: the chunk's index rows from the loaders'
         cursors, in one copy, then the resident chunk step."""
-        idx = np.stack([(loaders['sup'] if f else loaders['unsup'])
-                        ._next_batch_idxs() for f in chunk])
-        idxs = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        with trace.span('train.batch'):
+            idx = np.stack([(loaders['sup'] if f else loaders['unsup'])
+                            ._next_batch_idxs() for f in chunk])
+        # a blocking copy: it waits for the stream, so the previous
+        # dispatch's graph, before it copies
+        with trace.span('train.h2d'), trace.span('wait.h2d'):
+            idxs = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         if len(res_train) == 2:
             (xs, ys), (xu, yu) = res_train['sup'], res_train['unsup']
             return self._get_resident_train_fn('mixed')(
@@ -601,8 +632,9 @@ class Trainer:
                                                  self.gating_temp)
 
     def _epoch_idxs(self, loader) -> torch.Tensor:
-        return torch.from_numpy(loader.epoch_indices().astype(np.int64)) \
-            .to(self.device)
+        idx = loader.epoch_indices().astype(np.int64)
+        with trace.span('train.h2d'), trace.span('wait.h2d'):
+            return torch.from_numpy(idx).to(self.device)
 
     # ------------------------------- eval -------------------------------
     def _eval_chunks(self, loader):
@@ -620,17 +652,7 @@ class Trainer:
         """Mean accuracy over ceil(n/bs) batches: one resident pass when
         the split fits, else shipped chunks; the eval generator advances
         batch by batch either way, so the values are the same."""
-        temp = self.gating_temp if gating_temp is None else gating_temp
-        res = self._resident_eval_split(loader)
-        if res is not None:
-            accs = self._resident_eval_step(
-                self.model, *res, self._epoch_idxs(loader), self._eval_gen,
-                temp)
-        else:
-            accs = torch.cat([self._scan_eval(self.model, xs, ys,
-                                              self._eval_gen, temp)
-                              for xs, ys in self._eval_chunks(loader)])
-        return float(accs.mean())
+        return self._pass(loader, gating_temp, elbo=False)
 
     def test(self, loader) -> float:
         """Test protocol: the gating temperature is the eval temperature."""
@@ -639,17 +661,38 @@ class Trainer:
     def test_elbo(self, loader, gating_temp: Optional[float] = None) -> float:
         """Mean unsupervised ELBO over ceil(n/bs) batches (resident or
         shipped, as ``evaluate``)."""
+        return self._pass(loader, gating_temp, elbo=True)
+
+    def _pass(self, loader, gating_temp: Optional[float],
+              elbo: bool) -> float:
+        """One eval (accuracy) or ELBO pass over `loader` at `gating_temp`
+        (None: the Trainer's), the mean of its batches' values; an
+        ``eval.pass`` span whose request is the pass's number (inside its
+        ``train.epoch`` span when it is the epoch's validation)."""
         temp = self.gating_temp if gating_temp is None else gating_temp
+        self._passes += 1
         res = self._resident_eval_split(loader)
-        if res is not None:
-            vals = self._resident_elbo_step(
-                self.model, res[0], self._epoch_idxs(loader), self._eval_gen,
-                temp)
-        else:
-            vals = torch.cat([self._scan_elbo(self.model, xs,
-                                              self._eval_gen, temp)
-                              for xs, _ in self._eval_chunks(loader)])
-        return float(vals.mean())
+        with trace.span('eval.pass', request=self._passes,
+                        kind='elbo' if elbo else 'accuracy',
+                        resident=res is not None):
+            if res is not None:
+                idxs = self._epoch_idxs(loader)
+                if elbo:
+                    vals = self._resident_elbo_step(
+                        self.model, res[0], idxs, self._eval_gen, temp)
+                else:
+                    vals = self._resident_eval_step(
+                        self.model, *res, idxs, self._eval_gen, temp)
+            elif elbo:
+                vals = torch.cat([self._scan_elbo(self.model, xs,
+                                                  self._eval_gen, temp)
+                                  for xs, _ in self._eval_chunks(loader)])
+            else:
+                vals = torch.cat([self._scan_eval(self.model, xs, ys,
+                                                  self._eval_gen, temp)
+                                  for xs, ys in self._eval_chunks(loader)])
+            with trace.span('wait.result'):
+                return float(vals.mean())
 
     def restore(self, step: Optional[int] = None):
         if self.ckpt is None:

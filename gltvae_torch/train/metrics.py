@@ -19,6 +19,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from gltvae_torch import trace
 from gltvae_torch.utils.tb_events import EventFileWriter
 
 
@@ -54,9 +55,10 @@ class MetricsLogger:
         cells = [(i, k) for i, r in enumerate(self._pending)
                  for k, v in r.items() if isinstance(v, torch.Tensor)]
         # one device->host copy for the whole flush
-        values = (torch.stack([self._pending[i][k].reshape(())
-                               .to(torch.float32) for i, k in cells])
-                  .tolist() if cells else [])
+        with trace.span('wait.flush'):
+            values = (torch.stack([self._pending[i][k].reshape(())
+                                   .to(torch.float32) for i, k in cells])
+                      .tolist() if cells else [])
         rows = [dict(r) for r in self._pending]
         for (i, k), v in zip(cells, values):
             rows[i][k] = float(v)

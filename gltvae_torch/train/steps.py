@@ -86,6 +86,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from gltvae_torch import trace
 from gltvae_torch.config import TrainConfig
 from gltvae_torch.models.ccvae import CCVAE, Temps
 from gltvae_torch.ops import preprocess
@@ -143,6 +144,7 @@ def draw_noise(model: CCVAE, batch: int, supervised: bool, k: int,
     else:
         noise['u_y'] = _uniform((batch, c.y_dim), generator, dev,
                                 o.get('u_y'))
+    trace.count_noise(noise)
     return noise
 
 
@@ -156,6 +158,7 @@ def draw_eval_noise(model: CCVAE, batch: int, generator: torch.Generator,
     noise = {'eps_z': _normal((batch, model.cfg.z_dim), generator,
                               model.mu.device, o.get('eps_z'))}
     noise.update(_gate_draws(model, generator, o, raw))
+    trace.count_noise(noise)
     return noise
 
 
