@@ -13,13 +13,17 @@ Schedule semantics as in the reference Learner.train (gated_ccvae.py:
 **Device-resident splits** (the default, as in the JAX Trainer): a train
 or eval split that fits its byte budget (``resident_train_max_bytes``,
 ``resident_eval_max_bytes``) is copied to the device once as uint8 rows;
-each dispatch then sends only an [n, B] index tensor and gathers its
-batches on the device. Training cursors advance by the loaders'
-``_next_batch_idxs``, the same index stream the host iterators consume,
-so params, metrics and eval values equal the host-shipped path's bit for
-bit. Resident training is off for augmented runs, for host-sharded
-loaders, over budget, or when the sup and unsup images differ in shape;
-a split that does not fit is logged and streamed from the host.
+each dispatch then gathers its batches on the device from [n, B] index
+rows. A train epoch's rows go to the device in one copy at its start,
+drawn from the loaders' ``_next_batch_idxs`` in the order of the epoch's
+steps (the index stream the host iterators consume), and each dispatch
+takes its slice of them there, so nothing in a dispatch waits for the
+device and the host queues dispatch n + 1 while dispatch n runs; an eval
+or ELBO pass copies its rows once. Params, metrics and eval values equal
+the host-shipped path's bit for bit. Resident training is off for
+augmented runs, for host-sharded loaders, over budget, or when the sup
+and unsup images differ in shape; a split that does not fit is logged and
+streamed from the host.
 
 Otherwise each dispatch ships its uint8 batches to the device in one copy.
 Metrics stay on the device until the logger flushes. With
@@ -76,11 +80,13 @@ on a gloo mesh over CUDA tensors the dispatches are eager, and
 
 **Spans** (``gltvae_torch.trace``): an epoch is a ``train.epoch`` span and
 each dispatch a ``train.dispatch`` span, whose request id is its first
-global step, holding its ``train.batch``, ``train.h2d``, the step's host
-part and ``train.log``; an eval or ELBO pass is an ``eval.pass`` whose
+global step, holding a shipped batch's ``train.batch`` and ``train.h2d``,
+the step's host part and ``train.log``; an eval or ELBO pass is an ``eval.pass`` whose
 request id is its number; the host's waits on the device are ``wait.*``
 spans (``wait.h2d`` the resident index rows' blocking copy, inside its
-``train.h2d``). They record nothing unless the tracer is on or a profiler runs.
+``train.h2d``: one in a resident train epoch, before its first dispatch,
+and one in a resident pass). They record nothing unless the tracer is on
+or a profiler runs.
 
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
@@ -429,16 +435,19 @@ class Trainer:
                         iters: Optional[dict], flags, mixed: bool,
                         epoch: int, log_every: int) -> None:
         """The train dispatches of one epoch of step kinds `flags`: resident
-        chunks from `res_train`, else batches taken from the loaders'
+        chunks from `res_train` on slices of the epoch's index rows, copied
+        to the device first, else batches taken from the loaders'
         iterators `iters`; each a ``train.dispatch`` span whose request is
         its first global step."""
         total, pending_gates, i = len(flags), [], 0
+        if res_train is not None:
+            rows = self._epoch_rows(loaders, flags)
         for n in self._chunk_sizes(flags, self.steps_per_dispatch, mixed):
             chunk = flags[i:i + n]
             with trace.span('train.dispatch', request=int(self.state.step)):
                 if res_train is not None:
                     self.state, ms = self._resident_chunk(
-                        loaders, res_train, chunk)
+                        res_train, rows[i:i + n], chunk)
                     n_imgs = n * self.cfg.batch_size
                 else:
                     with trace.span('train.batch'):
@@ -612,16 +621,10 @@ class Trainer:
             self._resident_train_fns[kind] = fn
         return fn
 
-    def _resident_chunk(self, loaders, res_train: dict, chunk):
-        """One resident dispatch: the chunk's index rows from the loaders'
-        cursors, in one copy, then the resident chunk step."""
-        with trace.span('train.batch'):
-            idx = np.stack([(loaders['sup'] if f else loaders['unsup'])
-                            ._next_batch_idxs() for f in chunk])
-        # a blocking copy: it waits for the stream, so the previous
-        # dispatch's graph, before it copies
-        with trace.span('train.h2d'), trace.span('wait.h2d'):
-            idxs = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+    def _resident_chunk(self, res_train: dict, idxs: torch.Tensor, chunk):
+        """One resident dispatch: the resident chunk step on the chunk's
+        [n, B] index rows, already on the device; it copies nothing from
+        the host and waits for nothing."""
         if len(res_train) == 2:
             (xs, ys), (xu, yu) = res_train['sup'], res_train['unsup']
             return self._get_resident_train_fn('mixed')(
@@ -631,10 +634,24 @@ class Trainer:
         return self._get_resident_train_fn(kind)(self.state, x, y, idxs,
                                                  self.gating_temp)
 
-    def _epoch_idxs(self, loader) -> torch.Tensor:
-        idx = loader.epoch_indices().astype(np.int64)
+    def _epoch_rows(self, loaders, flags) -> torch.Tensor:
+        """A resident train epoch's index rows [len(flags), B] on the
+        device: row i the next batch of the sup loader where flags[i], else
+        of the unsup one, drawn in step order, as the host iterators draw
+        them."""
+        with trace.span('train.batch'):
+            idx = np.stack([(loaders['sup'] if f else loaders['unsup'])
+                            ._next_batch_idxs() for f in flags])
+        return self._upload_rows(idx)
+
+    def _upload_rows(self, idx: np.ndarray) -> torch.Tensor:
+        """Index rows [n, B] on the device, in one copy: a resident train
+        epoch's or a resident pass's (``trace.index_uploads`` counts them).
+        The copy blocks: it waits for the stream, so for the work queued
+        before it."""
+        trace.index_uploads += 1
         with trace.span('train.h2d'), trace.span('wait.h2d'):
-            return torch.from_numpy(idx).to(self.device)
+            return torch.from_numpy(idx.astype(np.int64)).to(self.device)
 
     # ------------------------------- eval -------------------------------
     def _eval_chunks(self, loader):
@@ -676,7 +693,7 @@ class Trainer:
                         kind='elbo' if elbo else 'accuracy',
                         resident=res is not None):
             if res is not None:
-                idxs = self._epoch_idxs(loader)
+                idxs = self._upload_rows(loader.epoch_indices())
                 if elbo:
                     vals = self._resident_elbo_step(
                         self.model, res[0], idxs, self._eval_gen, temp)

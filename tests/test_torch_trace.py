@@ -12,7 +12,7 @@
 - A tiny CPU Trainer with the tracer on: one ``train.dispatch`` a
   dispatch with ``host.draw`` and ``train.log`` inside, one ``eval.pass``
   a validation, each index rows' copy a ``wait.h2d`` inside its
-  ``train.h2d``, no ``graph.capture`` on the CPU, ``noise_bytes`` as the
+  ``train.h2d`` (one an epoch, before its dispatches, and one a pass), no ``graph.capture`` on the CPU, ``noise_bytes`` as the
   draws' shapes give it, and parameters and metrics.csv bit-equal to a run
   with the tracer off.
 - ``cli.py --trace-out``: one Chrome trace on one device, one a rank on a
@@ -141,8 +141,9 @@ def test_an_interval_keeps_the_counters_at_its_ends():
     assert iv['start']['noise_bytes'] == n0
     assert iv['stop']['noise_bytes'] == n0 + 3 * 5 * 4 + 2 * 8
     assert iv['start_ns'] <= iv['stop_ns']
-    assert set(iv['start']) == {'noise_bytes', 'dequant_launches',
-                                'augment_launches', 'collectives'}
+    assert set(iv['start']) == {'noise_bytes', 'index_uploads',
+                                'dequant_launches', 'augment_launches',
+                                'collectives'}
 
 
 def test_the_snapshot_reads_the_counters_where_they_live(monkeypatch):
@@ -152,7 +153,9 @@ def test_the_snapshot_reads_the_counters_where_they_live(monkeypatch):
     monkeypatch.setattr(preprocess, 'augment_launches', 5)
     monkeypatch.setattr(mesh, 'collectives', 3)
     monkeypatch.setattr(trace, 'noise_bytes', 40)
-    assert trace.snapshot() == {'noise_bytes': 40, 'dequant_launches': 11,
+    monkeypatch.setattr(trace, 'index_uploads', 7)
+    assert trace.snapshot() == {'noise_bytes': 40, 'index_uploads': 7,
+                                'dequant_launches': 11,
                                 'augment_launches': 5, 'collectives': 3}
 
 
@@ -318,16 +321,22 @@ def test_the_cpu_captures_nothing(traced):
 
 
 def test_each_index_copy_is_a_wait_inside_its_h2d(traced):
-    (t, loaders, _, rec), _ = traced
-    total, _, _ = t.epoch_schedule(loaders)
+    """A resident train epoch copies its index rows once, before its
+    first dispatch, and each resident pass its own; no dispatch waits."""
+    (_, _, _, rec), _ = traced
     waits = [r for r in rec if r['name'] == 'wait.h2d']
     assert all(rec[r['parent']]['name'] == 'train.h2d' for r in waits)
-    in_dispatch = [r for r in waits
-                   if rec[rec[r['parent']]['parent']]['name']
-                   == 'train.dispatch']
-    in_pass = [r for r in waits
-               if rec[rec[r['parent']]['parent']]['name'] == 'eval.pass']
-    assert (len(in_dispatch), len(in_pass)) == (2 * total, 2)
+    where = [rec[rec[r['parent']]['parent']]['name'] for r in waits]
+    assert where == ['train.epoch', 'eval.pass'] * 2
+    dispatches = {i for i, r in enumerate(rec)
+                  if r['name'] == 'train.dispatch'}
+    assert not any(r['parent'] in dispatches for r in rec
+                   if r['name'] in ('train.h2d', 'train.batch'))
+    for i, r in enumerate(rec):
+        if r['name'] == 'train.epoch':
+            first = min(j for j in dispatches if rec[j]['parent'] == i)
+            copy = next(w for w in waits if rec[w['parent']]['parent'] == i)
+            assert copy['end_ns'] <= rec[first]['start_ns']
 
 
 def test_noise_bytes_are_the_draws_shapes(traced):
