@@ -4,9 +4,10 @@ from the benchmark's own inputs, against what the timed path produced.
 Training: the reference follows the program's first steps (those of the
 first dispatches, three or more) from the same seed-made weights, rows and
 draws; compared are each step's loss, the first moments Adam holds after
-the first dispatch (the first gradient, as m / (1 - β₁)) by leaf, and the
-parameters' change after the steps by leaf. Test passes: the reference
-recomputes a sample of the passes' accuracies, drawn from the seed.
+the first dispatch (the first gradient, as m / (1 - β₁)) by leaf, both
+by their norms and element by element, and the parameters' change after
+the steps by leaf. Test passes: the reference recomputes a sample of the
+passes' accuracies, drawn from the seed.
 
 ``control.py`` puts the reference in the program's place, in a lower
 precision or with a fault planted, to read what the comparison gives
@@ -57,7 +58,8 @@ def train_reference(cell: H.Cell, seed: int, splits: dict, device,
                     first: int, steps: int, precision: str = 'f32',
                     fault: Optional[str] = None) -> dict:
     """The reference's readout of the first `steps` train steps at the
-    global batch: losses, first-gradient and change norms by leaf."""
+    global batch: losses, first-gradient and change norms by leaf, and
+    Adam's first moments after the `first` steps (``m``, tensors)."""
     _f32_only()
     t, m = cell.train, cell.model
     bs = t['batch_size']
@@ -80,7 +82,8 @@ def train_reference(cell: H.Cell, seed: int, splits: dict, device,
     return {'losses': out['losses'],
             'grad': H.leaf_norms(out['m_first'], 1.0 / (1.0 - BETA1)),
             'update': H.leaf_norms({n: out['params'][n] - params[n]
-                                    for n in out['m_first']})}
+                                    for n in out['m_first']}),
+            'm': out['m_first']}
 
 
 def test_reference(cell: H.Cell, seed: int, splits: dict, device,
@@ -120,6 +123,17 @@ def leaf_gaps(prog: Dict[str, float], ref: Dict[str, float],
             for n in names}
 
 
+def leaf_diffs(prog: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+               names: List[str]) -> Dict[str, float]:
+    """‖prog − ref‖ over max(‖ref‖, the median leaf's ‖ref‖), by leaf of
+    `names`, in float64 on the tensors' device. A common scale of both
+    sides, such as Adam's 1 / (1 − β₁), cancels."""
+    norm = {n: float(ref[n].double().norm()) for n in names}
+    med = float(np.median(list(norm.values())))
+    return {n: float((prog[n].double() - ref[n].double()).norm())
+            / max(norm[n], med, 1e-30) for n in names}
+
+
 def _worst(gaps: Dict[str, float]) -> tuple:
     n = max(gaps, key=gaps.get)
     return gaps[n], n
@@ -134,7 +148,9 @@ def train_checks(prog: dict, ref: dict) -> Dict[str, tuple]:
     gradient's norm by leaf, the parameters' change after the steps by
     leaf (leaves whose reference gradient is under a thousandth of the
     median leaf's left out), at the worst leaf, and the gradient's at the
-    median leaf too. Values are (gap, detail); a cell compares those its
+    median leaf too; and the first gradient element by element
+    (``leaf_diffs`` of Adam's first moments), at the worst and at the
+    median leaf. Values are (gap, detail); a cell compares those its
     limits name."""
     names = sorted(ref['grad'])
     med_g = float(np.median([ref['grad'][n] for n in names]))
@@ -145,11 +161,13 @@ def train_checks(prog: dict, ref: dict) -> Dict[str, tuple]:
         losses.append(float('inf'))
     grad = leaf_gaps(prog['grad'], ref['grad'], names)
     update = leaf_gaps(prog['update'], ref['update'], moved)
+    diff = leaf_diffs(prog['m'], ref['m'], names)
     return {'loss': (max(losses), 'steps ' + ' '.join(
                 f'{a:.7g}/{b:.7g}' for a, b in
                 zip(prog['losses'], ref['losses']))),
             'grad': _worst(grad), 'update': _worst(update),
-            'grad_median': _median(grad)}
+            'grad_median': _median(grad),
+            'grad_diff': _worst(diff), 'grad_diff_median': _median(diff)}
 
 
 def sample_passes(n_passes: int, seed: int, k: int) -> List[int]:

@@ -7,8 +7,9 @@ coordinator on a port picked free at run time, then
 
 The cell's command spawns the ranks and waits for them. Rank 0's
 timeline gives the window and the intervals; each rank traces the same
-epoch. The ranks hand their readings back in files; once they have left,
-this process runs the reference at the global batch on chip 0.
+epoch. The ranks hand their readings back in files (rank 0's Adam moments
+with ``torch.save`` beside its JSON record); once they have left, this
+process runs the reference at the global batch on chip 0.
 
 Traffic keys: as ``train_epochs``.
 """
@@ -21,6 +22,8 @@ import socket
 import subprocess
 import sys
 import time
+
+import torch
 
 import harness as H
 import checks as C
@@ -97,6 +100,8 @@ def run(ctx) -> dict:
     out['record'] = train_record(cell, r0['win'],
                                  [r['trace'] for r in results if r['trace']],
                                  r0['eval_batches'])
+    r0['prog']['m'] = torch.load(moments_path(files[0][0]),
+                                 map_location=ctx.device)
     splits = H.make_splits(cell, ctx.seed, ctx.device)
     ref = C.train_reference(cell, ctx.seed, splits, ctx.device,
                             r0['prog']['first'], r0['prog']['steps'])
@@ -104,10 +109,14 @@ def run(ctx) -> dict:
     return out
 
 
+def moments_path(rank_out: str) -> str:
+    """Where a rank's Adam moments go, beside its JSON record."""
+    return rank_out + '.m.pt'
+
+
 def rank_main(args, cell) -> None:
     """One rank: join, warm up, the window, the trace, the readout; then
     leave the group and write the readings to ``args.rank_out``."""
-    import torch
     from gltvae_torch.parallel import mesh as pmesh
     pmesh.initialize_multihost(f'tcp://localhost:{args.port}', args.world,
                                args.rank, device=args.device)
@@ -138,6 +147,10 @@ def rank_main(args, cell) -> None:
             mesh.device) if cuda else 0)
         rec['eval_batches'] = s.eval_batches()
         rec['prog'] = s.program_readout()
+        m = rec['prog'].pop('m')
+        if args.rank == 0:
+            torch.save({n: v.cpu() for n, v in m.items()},
+                       moments_path(args.rank_out))
         s.close()
     finally:
         pmesh.shutdown()

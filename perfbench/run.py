@@ -9,8 +9,9 @@ from the seed, builds ``gltvae_torch``'s Trainer, warms it up (its first
 epoch, whose first steps the plain reference in ``perfbench/reference``
 follows), measures whole epochs or passes for ``--seconds`` seconds, and
 with ``--trace 1`` traces a further segment for the per-layer metrics.
-It prints each compared number beside its limit as its last lines on
-standard error and, as the last line of standard output, one JSON object:
+It prints the comparison's other numbers, then each compared number
+beside its limit, as its last lines on standard error and, as the last
+line of standard output, one JSON object:
 ``correct``, ``attempted``, ``failed``, ``metrics`` (the end-to-end ones,
 or with ``--trace 1`` the per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``.
@@ -105,6 +106,9 @@ def execute(name, seed, seconds, trace, device='cuda', sizes=None) -> dict:
     else:
         metrics = {n: {'value': out['e2e'][n], 'unit': u}
                    for n, u in e2e_units.items()}
+    for n, (value, detail) in out['checks'].items():
+        if n not in cell.workload['limits']:
+            H.log(f'reading {n}: {value:.6g} (no limit) [{detail}]')
     correct, table, lines = judge(out['checks'], cell.workload['limits'])
     dev = H.device_info(cell.chips, ctx.cuda)
     dev['memory_peak_bytes'] = int(out['memory_peak_bytes'])

@@ -159,11 +159,14 @@ class TrainSession:
 
     # ------------------------------ readout ------------------------------
     def program_readout(self) -> dict:
+        """The warm-up's first steps as the comparison reads them: losses,
+        first-gradient and change norms by leaf, and Adam's first moments
+        after the first dispatch (``m``, tensors on the device)."""
         r = self.readout
         return {'first': r['first'], 'steps': r['steps'],
                 'losses': r['losses'],
                 'grad': H.leaf_norms(r['m'], 1.0 / (1.0 - 0.9)),
-                'update': H.leaf_norms(r['delta'])}
+                'update': H.leaf_norms(r['delta']), 'm': r['m']}
 
     def eval_batches(self) -> int:
         """Batches of one validation pass."""

@@ -32,12 +32,14 @@ SEED = 2 ** 31 + 4242
 def small(name):
     """Sizes a CPU run holds: a few batches of 16 an epoch; a test cell's
     split holds enough labels (512 rows of them) that a lower precision
-    flips some."""
+    flips some. A train cell's traced segment runs from its second
+    dispatch to the epoch's end, its validation pass included, so that it
+    holds the host's waits for the device."""
     if H.load_cell(name).workload['driver'] == 'test_passes':
         return {'n_train': 80, 'n_valid': 24, 'n_test': 512,
                 'batch_size': 16, 'trace': {'count': 2}}
     return {'n_train': 80, 'n_valid': 24, 'n_test': 24, 'batch_size': 16,
-            'trace': {'skip': 1, 'count': 2}}
+            'trace': {'skip': 1, 'count': None}}
 
 
 def rehearse(name, trace=0):
