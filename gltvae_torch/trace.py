@@ -35,11 +35,13 @@ stopped.
 
 Counters: ``noise_bytes``, the bytes of the variates the host parts draw
 (``count_noise``, called by ``train.steps.draw_noise`` and
-``draw_eval_noise`` on the captured and the eager paths alike), and
+``draw_eval_noise`` on the captured and the eager paths alike),
 ``index_uploads``, the host-to-device copies of resident index rows (the
 Trainer's ``_upload_rows``: one a resident train epoch, one a resident
-eval or ELBO pass). ``snapshot`` reads them beside the counters that
-already live elsewhere:
+eval or ELBO pass), and ``h2d_bytes``, the bytes of the host batches the
+Trainer's ``_place`` ships (images and labels: each streamed dispatch and
+eval chunk, and a resident split's copy at set-up). ``snapshot`` reads
+them beside the counters that already live elsewhere:
 the dequant and augment launches (``ops.preprocess``) and the
 collectives (``parallel.mesh``). Replays, captures and waits are counted
 by their spans.
@@ -81,6 +83,8 @@ _rank_known = False
 noise_bytes = 0
 #: Host-to-device copies of resident index rows in this process.
 index_uploads = 0
+#: Bytes of the host batches the Trainer shipped in this process.
+h2d_bytes = 0
 
 
 class _Null:
@@ -208,12 +212,13 @@ def count_noise(noise: Dict[str, torch.Tensor]) -> None:
 
 
 def snapshot() -> Dict[str, int]:
-    """The counters: ``noise_bytes``, ``index_uploads``, the dequant and
-    augment kernels' launches and the mesh's collectives, read where each
-    lives."""
+    """The counters: ``noise_bytes``, ``index_uploads``, ``h2d_bytes``,
+    the dequant and augment kernels' launches and the mesh's collectives,
+    read where each lives."""
     from gltvae_torch.ops import preprocess
     from gltvae_torch.parallel import mesh
     return {'noise_bytes': noise_bytes, 'index_uploads': index_uploads,
+            'h2d_bytes': h2d_bytes,
             'dequant_launches': preprocess.launches,
             'augment_launches': preprocess.augment_launches,
             'collectives': mesh.collectives}

@@ -83,10 +83,11 @@ each dispatch a ``train.dispatch`` span, whose request id is its first
 global step, holding a shipped batch's ``train.batch`` and ``train.h2d``,
 the step's host part and ``train.log``; an eval or ELBO pass is an ``eval.pass`` whose
 request id is its number; the host's waits on the device are ``wait.*``
-spans (``wait.h2d`` the resident index rows' blocking copy, inside its
-``train.h2d``: one in a resident train epoch, before its first dispatch,
-and one in a resident pass). They record nothing unless the tracer is on
-or a profiler runs.
+spans (``wait.h2d`` a blocking copy, inside its ``train.h2d``: the
+resident index rows', one in a resident train epoch, before its first
+dispatch, and one in a resident pass; a shipped batch's, one a streamed
+dispatch or eval chunk). They record nothing unless the tracer is on or
+a profiler runs.
 
 ``tensorboard_dir`` adds TensorBoard scalar events beside metrics.csv
 (``MetricsLogger``). ``debug_nans`` checks every train and eval dispatch
@@ -245,17 +246,22 @@ class Trainer:
 
     def _place(self, batch, stacked: bool = False):
         """A host batch on the device: on a mesh, this rank's rows of it
-        (batch axis 1 when `stacked`)."""
+        (batch axis 1 when `stacked`). The copies block, so they are a
+        ``wait.h2d`` inside the ``train.h2d``; ``trace.h2d_bytes`` counts
+        what they ship."""
         with trace.span('train.h2d'):
             if self.mesh is not None:
                 from gltvae_torch.parallel.dp import (shard_batch,
                                                       shard_stacked_batch)
                 batch = (shard_stacked_batch if stacked else shard_batch)(
                     batch, self.mesh, local=self.local_batches)
-            x, y = batch
-            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            y = torch.from_numpy(np.asarray(y, np.float32)).to(self.device)
-            return x, y
+            x = np.ascontiguousarray(batch[0])
+            y = np.asarray(batch[1], np.float32)
+            trace.h2d_bytes += x.nbytes + y.nbytes
+            # pageable memory: each copy waits for the stream
+            with trace.span('wait.h2d'):
+                return (torch.from_numpy(x).to(self.device),
+                        torch.from_numpy(y).to(self.device))
 
     def _augment(self, u8: torch.Tensor) -> torch.Tensor:
         """The augment stage of a padded train batch, [B, ...] or stacked

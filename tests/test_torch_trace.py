@@ -142,8 +142,8 @@ def test_an_interval_keeps_the_counters_at_its_ends():
     assert iv['stop']['noise_bytes'] == n0 + 3 * 5 * 4 + 2 * 8
     assert iv['start_ns'] <= iv['stop_ns']
     assert set(iv['start']) == {'noise_bytes', 'index_uploads',
-                                'dequant_launches', 'augment_launches',
-                                'collectives'}
+                                'h2d_bytes', 'dequant_launches',
+                                'augment_launches', 'collectives'}
 
 
 def test_the_snapshot_reads_the_counters_where_they_live(monkeypatch):
@@ -154,7 +154,9 @@ def test_the_snapshot_reads_the_counters_where_they_live(monkeypatch):
     monkeypatch.setattr(mesh, 'collectives', 3)
     monkeypatch.setattr(trace, 'noise_bytes', 40)
     monkeypatch.setattr(trace, 'index_uploads', 7)
+    monkeypatch.setattr(trace, 'h2d_bytes', 9)
     assert trace.snapshot() == {'noise_bytes': 40, 'index_uploads': 7,
+                                'h2d_bytes': 9,
                                 'dequant_launches': 11,
                                 'augment_launches': 5, 'collectives': 3}
 
@@ -322,12 +324,17 @@ def test_the_cpu_captures_nothing(traced):
 
 def test_each_index_copy_is_a_wait_inside_its_h2d(traced):
     """A resident train epoch copies its index rows once, before its
-    first dispatch, and each resident pass its own; no dispatch waits."""
+    first dispatch, and each resident pass its own; no dispatch waits.
+    Each resident split's one copy at set-up (``resident.copy``: sup,
+    unsup, then valid at the first pass) is a wait too."""
     (_, _, _, rec), _ = traced
     waits = [r for r in rec if r['name'] == 'wait.h2d']
     assert all(rec[r['parent']]['name'] == 'train.h2d' for r in waits)
     where = [rec[rec[r['parent']]['parent']]['name'] for r in waits]
-    assert where == ['train.epoch', 'eval.pass'] * 2
+    assert [w for w in where if w == 'resident.copy'] == ['resident.copy'] * 3
+    waits = [w for w, at in zip(waits, where) if at != 'resident.copy']
+    assert [w for w in where if w != 'resident.copy'] == \
+        ['train.epoch', 'eval.pass'] * 2
     dispatches = {i for i, r in enumerate(rec)
                   if r['name'] == 'train.dispatch'}
     assert not any(r['parent'] in dispatches for r in rec
